@@ -1,0 +1,16 @@
+from bbocr_tpu_torch.models.charset import EN_CHARSET, Charset, charset_for_num_classes
+from bbocr_tpu_torch.models.convert import craft_state_dict, crnn_state_dict
+from bbocr_tpu_torch.models.craft import CRAFT
+from bbocr_tpu_torch.models.crnn import CRNN
+from bbocr_tpu_torch.models.weights import fold_gray_stem
+
+__all__ = [
+    "CRAFT",
+    "CRNN",
+    "Charset",
+    "EN_CHARSET",
+    "charset_for_num_classes",
+    "craft_state_dict",
+    "crnn_state_dict",
+    "fold_gray_stem",
+]
