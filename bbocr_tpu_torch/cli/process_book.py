@@ -1,6 +1,6 @@
-"""Single-book CLI: resolve ``books/<id>/``, run the extractor on the
-heuristic backend, validate, save ``book_<id>_enhanced.json`` and print a
-summary.
+"""Single-book CLI: resolve ``books/<id>/`` in the repository (or under
+``--books-dir``), run the extractor on the heuristic backend, validate,
+save ``book_<id>_enhanced.json`` and print a summary.
 
     python -m bbocr_tpu_torch.cli.process_book 1 --ocr-indices 0 1
     python -m bbocr_tpu_torch.cli.process_book --book-dir path/to/book --device cpu
@@ -21,13 +21,13 @@ from typing import Optional
 from bbocr_tpu_torch.extract import BookMetadataExtractor, validate_metadata
 
 
+_BOOKS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "books")
+
+
 def find_books_dir(explicit: Optional[str] = None) -> Optional[str]:
-    if explicit:
-        return explicit if os.path.isdir(explicit) else None
-    for cand in ("books", os.path.join("..", "books")):
-        if os.path.isdir(cand):
-            return cand
-    return None
+    """``explicit`` if given, else the repository's own ``books/``."""
+    root = explicit or _BOOKS_DIR
+    return root if os.path.isdir(root) else None
 
 
 def make_extractor(device="cuda", use_preprocessing: bool = True, edge_crop_percent: float = 0.0) -> BookMetadataExtractor:

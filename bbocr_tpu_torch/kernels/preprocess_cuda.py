@@ -51,13 +51,15 @@ def _taps(values) -> ctypes.Array:
     return (ctypes.c_float * len(values))(*values)
 
 
-def _stream(img: torch.Tensor) -> int:
-    return torch.cuda.current_stream(img.device).cuda_stream
-
-
-def _raise_on(err: int, name: str) -> None:
+def _launch(fn, img: torch.Tensor, *args) -> None:
+    """Call the launcher ``bbocr_<fn.__name__>`` with ``args`` and the current
+    stream, on the image's card; count the launch once it has succeeded."""
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(build.load(), f"bbocr_{fn.__name__}")(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    fn.launches += 1
 
 
 def blur3_u8_plain(img: torch.Tensor, sigma: float = 3.0) -> torch.Tensor:
@@ -73,9 +75,7 @@ def blur3_u8(img: torch.Tensor, sigma: float = 3.0) -> torch.Tensor:
     n, h, w = img.shape
     out = torch.empty_like(img)
     taps = _taps(gaussian_kernel_1d(3, sigma))
-    err = build.load().bbocr_blur3_u8(img.data_ptr(), out.data_ptr(), n, h, w, taps, _stream(img))
-    _raise_on(err, "blur3_u8")
-    blur3_u8.launches += 1
+    _launch(blur3_u8, img, img.data_ptr(), out.data_ptr(), n, h, w, taps)
     return out
 
 
@@ -94,12 +94,7 @@ def unsharp_u8(img: torch.Tensor, percent: int = 30, threshold: int = 3, radius:
         return unsharp_u8_plain(img, percent, threshold, radius)
     n, h, w = img.shape
     out = torch.empty_like(img)
-    err = build.load().bbocr_unsharp_u8(
-        img.data_ptr(), out.data_ptr(), n, h, w, _taps(taps),
-        float(percent), float(threshold), _stream(img),
-    )
-    _raise_on(err, "unsharp_u8")
-    unsharp_u8.launches += 1
+    _launch(unsharp_u8, img, img.data_ptr(), out.data_ptr(), n, h, w, _taps(taps), float(percent), float(threshold))
     return out
 
 
@@ -119,12 +114,7 @@ def enhance_u8(img: torch.Tensor, mean: torch.Tensor, contrast: float, brightnes
     n, h, w = img.shape
     mean = mean.contiguous()
     out = torch.empty_like(img)
-    err = build.load().bbocr_enhance_u8(
-        img.data_ptr(), mean.data_ptr(), out.data_ptr(), n, h, w,
-        float(contrast), float(brightness), _stream(img),
-    )
-    _raise_on(err, "enhance_u8")
-    enhance_u8.launches += 1
+    _launch(enhance_u8, img, img.data_ptr(), mean.data_ptr(), out.data_ptr(), n, h, w, float(contrast), float(brightness))
     return out
 
 

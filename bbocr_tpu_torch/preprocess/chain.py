@@ -12,8 +12,8 @@ brightness and the unsharp mask are one kernel each
 PyTorch, and the per-image mean for the contrast step is taken between
 kernels from an exact integer sum. On a CPU tensor each kernel wrapper
 runs its plain version, so the CPU chain is the plain chain
-(``_chain_gray``). ``use_kernels=False`` calls the plain versions on any
-device, which is how the kernels are held against them end to end.
+(``_chain_gray``). ``_preprocess(..., PLAIN_OPS)`` calls the plain versions
+on any device, which is how the kernels are held against them end to end.
 """
 
 from __future__ import annotations
@@ -38,12 +38,14 @@ BOOK_COVER_STEPS = (
 )
 
 
-def _chain_gray(x: torch.Tensor, out_h: int, out_w: int, use_kernels: bool = True) -> torch.Tensor:
+# The chain's three kernel steps: (blur, enhance, unsharp).
+KERNEL_OPS = (kernels.blur3_u8, kernels.enhance_u8, kernels.unsharp_u8)
+PLAIN_OPS = (kernels.blur3_u8_plain, kernels.enhance_u8_plain, kernels.unsharp_u8_plain)
+
+
+def _chain_gray(x: torch.Tensor, out_h: int, out_w: int, ops=KERNEL_OPS) -> torch.Tensor:
     """(N, H, W) grayscale [0,255] -> preprocessed (N, out_h, out_w)."""
-    if use_kernels:
-        blur, enhance, unsharp = kernels.blur3_u8, kernels.enhance_u8, kernels.unsharp_u8
-    else:
-        blur, enhance, unsharp = kernels.blur3_u8_plain, kernels.enhance_u8_plain, kernels.unsharp_u8_plain
+    blur, enhance, unsharp = ops
     x = quantize_u8(x)
     x = resize_bicubic(x, out_h, out_w).contiguous()
     x = blur(x, 3.0)
@@ -52,18 +54,19 @@ def _chain_gray(x: torch.Tensor, out_h: int, out_w: int, use_kernels: bool = Tru
     return unsharp(x, 30, 3, 1.0)
 
 
-def preprocess_for_book_cover(
-    img, scale: float = 1.5, device="cuda", use_kernels: bool = True
-) -> Tuple[torch.Tensor, List[str]]:
-    """Single image. ``img``: (H, W) gray or (H, W, 3) RGB in [0,255], a
-    numpy array or a tensor. Returns ``(preprocessed, steps_applied)``:
-    ``preprocessed`` is an (int(H*scale), int(W*scale)) float32 tensor on
-    ``device``."""
+def _preprocess(img, scale: float, device, ops) -> torch.Tensor:
     if not torch.is_tensor(img):
         img = torch.from_numpy(np.array(img, dtype=np.float32))
     arr = img.to(device=device, dtype=torch.float32)
     h, w = arr.shape[0], arr.shape[1]
     if arr.ndim == 3:
         arr = rgb_to_grayscale(arr)
-    out = _chain_gray(arr[None], int(h * scale), int(w * scale), use_kernels)[0]
-    return out, list(BOOK_COVER_STEPS)
+    return _chain_gray(arr[None], int(h * scale), int(w * scale), ops)[0]
+
+
+def preprocess_for_book_cover(img, scale: float = 1.5, device="cuda") -> Tuple[torch.Tensor, List[str]]:
+    """Single image. ``img``: (H, W) gray or (H, W, 3) RGB in [0,255], a
+    numpy array or a tensor. Returns ``(preprocessed, steps_applied)``:
+    ``preprocessed`` is an (int(H*scale), int(W*scale)) float32 tensor on
+    ``device``."""
+    return _preprocess(img, scale, device, KERNEL_OPS), list(BOOK_COVER_STEPS)

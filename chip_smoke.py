@@ -47,8 +47,8 @@ from bbocr_tpu_torch.extract import validate_metadata, validate_schema
 from bbocr_tpu_torch.io import load_rgb
 from bbocr_tpu_torch.kernels import build as kernel_build
 from bbocr_tpu_torch.native import loader as native_loader
-from bbocr_tpu_torch.ops import clahe, quantize_u8, resize_bicubic, rgb_to_grayscale, rounded_mean
-from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
+from bbocr_tpu_torch.ops import rounded_mean
+from bbocr_tpu_torch.preprocess.chain import KERNEL_OPS, PLAIN_OPS, _preprocess
 from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -132,26 +132,27 @@ def profiled_device_ms(fn, symbol: str, reps: int = TIMING_REPS):
 
 
 def chain_inputs(rgb: np.ndarray, dev) -> dict:
-    """The three kernels' inputs as the slice's chain gives them for book1."""
-    x = rgb_to_grayscale(torch.from_numpy(rgb).to(dev, torch.float32))[None]
-    h, w = x.shape[-2:]
-    x = resize_bicubic(quantize_u8(x), int(h * 1.5), int(w * 1.5)).contiguous()
-    blurred = kernels.blur3_u8_plain(x)
-    mean = rounded_mean(blurred)
-    enhanced = kernels.enhance_u8_plain(blurred, mean, 1.9, 1.2)
-    return {"blur3_u8": (x,), "enhance_u8": (blurred, mean), "unsharp_u8": (clahe(enhanced, 2.5, (8, 8)).contiguous(),)}
+    """The three kernels' arguments as the slice's chain gives them for
+    book1, recorded from the chain itself running the plain versions."""
+    seen = {}
+
+    def recorder(name, fn):
+        def record(*args):
+            seen[name] = args
+            return fn(*args)
+        return record
+
+    _preprocess(rgb, 1.5, dev, tuple(recorder(n, fn) for n, fn in zip(("blur3_u8", "enhance_u8", "unsharp_u8"), PLAIN_OPS)))
+    return seen
 
 
 def random_inputs(n: int, h: int, w: int, seed: int, dev) -> dict:
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.integers(0, 256, (n, h, w)).astype(np.float32)).to(dev)
-    return {"blur3_u8": (x,), "enhance_u8": (x, rounded_mean(x)), "unsharp_u8": (x,)}
+    return {"blur3_u8": (x,), "enhance_u8": (x, rounded_mean(x), 1.9, 1.2), "unsharp_u8": (x,)}
 
 
 def call(name: str, args, plain: bool):
-    if name == "enhance_u8":
-        fn = kernels.enhance_u8_plain if plain else kernels.enhance_u8
-        return fn(*args, 1.9, 1.2)
     fn = getattr(kernels, f"{name}_plain") if plain else kernels.KERNELS[name]
     return fn(*args)
 
@@ -216,8 +217,8 @@ def run_slice(dev):
     return meta, launches, seconds, extractor
 
 
-def f32_read(rgb: np.ndarray, dev, use_kernels: bool, engine: OCREngine):
-    pre, _ = preprocess_for_book_cover(rgb, device=dev, use_kernels=use_kernels)
+def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
+    pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
     return image, engine.readtext(image)
 
@@ -267,8 +268,8 @@ def main() -> int:
         os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
         EngineConfig(compute_dtype=torch.float32), device=dev,
     )
-    img_k, res_k = f32_read(rgb, dev, True, engine)
-    img_p, res_p = f32_read(rgb, dev, False, engine)
+    img_k, res_k = f32_read(rgb, dev, KERNEL_OPS, engine)
+    img_p, res_p = f32_read(rgb, dev, PLAIN_OPS, engine)
     texts_k = [t for _, t, _ in res_k]
     texts_p = [t for _, t, _ in res_p]
     print(f"f32 texts (kernels): {texts_k}", flush=True)

@@ -141,6 +141,27 @@ def test_readtext_matches_jax_engine(engines, cover_u8):
     assert set(port.timings()) == {"letterbox", "detect", "boxes", "rectify", "recognize"}
 
 
+def test_readtext_bf16_matches_jax_engine(cover_u8):
+    """The default bfloat16 engines of both packages. XLA and PyTorch round
+    bfloat16 at different points, so a detection score near the threshold
+    can flip and move a box edge by one map pixel: CRAFT's maps are at half
+    resolution, so quads agree within 2 px. Where the quads are equal the
+    crops are too, and the texts must be equal."""
+    jax_engine = _jax_engine(config=JaxEngineConfig(
+        canvases=(JaxCanvasSpec(*CANVAS),), compute_dtype=jnp.bfloat16, host_rectify=False,
+        wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
+    ))
+    port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(canvases=(CanvasSpec(*CANVAS),)), device="cpu")
+    assert port.config.compute_dtype == torch.bfloat16
+    ref = jax_engine.readtext(cover_u8)
+    got = port.readtext(cover_u8)
+    assert len(ref) > 0 and len(got) == len(ref)
+    for (q, t, _), (rq, rt, _) in zip(got, ref):
+        assert np.abs(q - rq).max() <= 2.0
+        if np.array_equal(q, rq):
+            assert t == rt
+
+
 def test_extractor_makes_valid_json(engines, tmp_path):
     _, port = engines
     rgb = load_rgb(BOOK1)[::2, ::2]

@@ -15,6 +15,7 @@ import torch
 from bbocr_tpu_torch import kernels, ops
 from bbocr_tpu_torch.io import load_rgb
 from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
+from bbocr_tpu_torch.preprocess.chain import PLAIN_OPS, _preprocess
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOOK1 = os.path.join(ROOT, "data", "real", "covers", "book1.png")
@@ -43,8 +44,8 @@ def test_cuda_kernels_match_plain(cuda_device, shape):
 
 def test_cuda_chain_matches_plain_chain(cuda_device):
     rgb = load_rgb(BOOK1)
-    a, _ = preprocess_for_book_cover(rgb, device=cuda_device, use_kernels=True)
-    b, _ = preprocess_for_book_cover(rgb, device=cuda_device, use_kernels=False)
+    a, _ = preprocess_for_book_cover(rgb, device=cuda_device)
+    b = _preprocess(rgb, 1.5, cuda_device, PLAIN_OPS)
     assert torch.equal(a, b)
 
 

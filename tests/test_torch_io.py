@@ -66,3 +66,15 @@ def test_schema_rejects_wrong_types(field, value):
     meta[field] = value
     with pytest.raises(SchemaError):
         validate_schema(meta)
+
+
+def test_books_dir_stays_in_the_repository(tmp_path, monkeypatch):
+    """The CLI looks for ``books/`` in the repository, never next to it."""
+    from bbocr_tpu_torch.cli.process_book import find_books_dir
+
+    (tmp_path / "books").mkdir()
+    (tmp_path / "cwd").mkdir()
+    monkeypatch.chdir(tmp_path / "cwd")  # "../books" exists from here
+    assert find_books_dir() == os.path.join(ROOT, "books")
+    assert find_books_dir(str(tmp_path / "books")) == str(tmp_path / "books")
+    assert find_books_dir(str(tmp_path / "missing")) is None

@@ -21,6 +21,7 @@ from bbocr_tpu.preprocess.chain import _chain_gray_pallas
 from bbocr_tpu_torch import kernels, ops
 from bbocr_tpu_torch.io import load_rgb
 from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
+from bbocr_tpu_torch.preprocess.chain import PLAIN_OPS, _preprocess
 
 torch.set_num_threads(2)
 
@@ -111,8 +112,8 @@ def test_chain_matches_pallas_chain_on_book1():
 
 def test_chain_without_kernels_is_identical_on_cpu():
     x = _u8((45, 38), 6)
-    a, _ = preprocess_for_book_cover(x, device="cpu", use_kernels=True)
-    b, _ = preprocess_for_book_cover(x, device="cpu", use_kernels=False)
+    a, _ = preprocess_for_book_cover(x, device="cpu")
+    b = _preprocess(x, 1.5, "cpu", PLAIN_OPS)
     assert torch.equal(a, b)
 
 
