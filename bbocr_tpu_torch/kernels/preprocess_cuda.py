@@ -22,6 +22,7 @@ Each is bound by one read and one write of the image: 2 * N*H*W*4 bytes.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,16 +48,40 @@ def _check_image(img: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {img.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    """The bound C launcher ``bbocr_<name>``, built and loaded on first use."""
+    return getattr(build.load(), f"bbocr_{name}")
+
+
+@functools.lru_cache(maxsize=None)
+def _blur3_taps(sigma: float) -> ctypes.Array:
+    return _taps(gaussian_kernel_1d(3, sigma))
+
+
+@functools.lru_cache(maxsize=None)
+def _unsharp_taps(radius: float) -> ctypes.Array:
+    taps = pil_gaussian_kernel_1d(radius)
+    if len(taps) != 7:
+        raise ValueError(f"the kernel takes a 7-tap blur; radius {radius} gives {len(taps)}")
+    return _taps(taps)
+
+
 def _taps(values) -> ctypes.Array:
     return (ctypes.c_float * len(values))(*values)
 
 
 def _launch(fn, img: torch.Tensor, *args) -> None:
-    """Call the launcher ``bbocr_<fn.__name__>`` with ``args`` and the current
-    stream, on the image's card; count the launch once it has succeeded."""
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(build.load(), f"bbocr_{fn.__name__}")(*args, stream)
+    """Call the launcher ``bbocr_<fn.__name__>`` with ``args`` and the
+    image's current stream, with the image's card current; count the launch
+    once it has succeeded."""
+    launcher = _launcher(fn.__name__)
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    if img.device.index == torch.cuda.current_device():
+        err = launcher(*args, stream)
+    else:
+        with torch.cuda.device(img.device):
+            err = launcher(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
     fn.launches += 1
@@ -74,8 +99,7 @@ def blur3_u8(img: torch.Tensor, sigma: float = 3.0) -> torch.Tensor:
         return blur3_u8_plain(img, sigma)
     n, h, w = img.shape
     out = torch.empty_like(img)
-    taps = _taps(gaussian_kernel_1d(3, sigma))
-    _launch(blur3_u8, img, img.data_ptr(), out.data_ptr(), n, h, w, taps)
+    _launch(blur3_u8, img, img.data_ptr(), out.data_ptr(), n, h, w, _blur3_taps(float(sigma)))
     return out
 
 
@@ -87,14 +111,12 @@ def unsharp_u8_plain(img: torch.Tensor, percent: int = 30, threshold: int = 3, r
 def unsharp_u8(img: torch.Tensor, percent: int = 30, threshold: int = 3, radius: float = 1.0) -> torch.Tensor:
     """PIL UnsharpMask: blur, then sharpen where |src - blur| >= threshold."""
     _check_image(img)
-    taps = pil_gaussian_kernel_1d(radius)
-    if len(taps) != 7:
-        raise ValueError(f"the kernel takes a 7-tap blur; radius {radius} gives {len(taps)}")
+    taps = _unsharp_taps(float(radius))
     if img.device.type == "cpu":
         return unsharp_u8_plain(img, percent, threshold, radius)
     n, h, w = img.shape
     out = torch.empty_like(img)
-    _launch(unsharp_u8, img, img.data_ptr(), out.data_ptr(), n, h, w, _taps(taps), float(percent), float(threshold))
+    _launch(unsharp_u8, img, img.data_ptr(), out.data_ptr(), n, h, w, taps, float(percent), float(threshold))
     return out
 
 

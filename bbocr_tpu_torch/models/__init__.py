@@ -2,12 +2,14 @@ from bbocr_tpu_torch.models.charset import EN_CHARSET, Charset, charset_for_num_
 from bbocr_tpu_torch.models.convert import craft_state_dict, crnn_state_dict
 from bbocr_tpu_torch.models.craft import CRAFT
 from bbocr_tpu_torch.models.crnn import CRNN
+from bbocr_tpu_torch.models.layers import cast_for_compute
 from bbocr_tpu_torch.models.weights import fold_gray_stem
 
 __all__ = [
     "CRAFT",
     "CRNN",
     "Charset",
+    "cast_for_compute",
     "EN_CHARSET",
     "charset_for_num_classes",
     "craft_state_dict",

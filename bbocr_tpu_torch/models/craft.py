@@ -5,7 +5,8 @@ modules are NCHW; weights come from the flax tree through
 ``bbocr_tpu_torch.models.convert``. Details that keep parity:
 
 - flax ``GroupNorm`` has eps 1e-6 (torch defaults to 1e-5); groups are
-  ``min(32, C)``;
+  ``min(32, C)``; in bfloat16 the layers of ``models.layers`` round where
+  flax does;
 - "SAME" stride-1 convs pad ``dilation * (k - 1) // 2`` on each side; the
   fc6 conv is 3x3 with dilation 6; the fc pool is a 3x3 stride-1 max pool
   padded with -inf;
@@ -21,10 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bbocr_tpu_torch.models.layers import Conv2d, GroupNorm
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-
-GROUPNORM_EPS = 1e-6  # flax.linen.GroupNorm's default
 
 
 class ConvBN(nn.Module):
@@ -32,11 +33,11 @@ class ConvBN(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, dilation: int = 1, use_bn: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(
+        self.conv = Conv2d(
             cin, cout, kernel, padding=dilation * (kernel - 1) // 2,
             dilation=dilation, bias=not use_bn,
         )
-        self.norm = nn.GroupNorm(min(32, cout), cout, eps=GROUPNORM_EPS) if use_bn else None
+        self.norm = GroupNorm(min(32, cout), cout) if use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
@@ -115,7 +116,7 @@ class CRAFT(nn.Module):
             ConvBN(32, 16, use_bn=False),
             ConvBN(16, 16, kernel=1, use_bn=False),
         ])
-        self.out = nn.Conv2d(16, 2, 1)
+        self.out = Conv2d(16, 2, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         f1, f2, f3, f4, f5 = self.backbone(x)

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bbocr_tpu_torch.models.craft import GROUPNORM_EPS
+from bbocr_tpu_torch.models.layers import Conv2d, GroupNorm, Linear
 
 INPUT_HEIGHT = 32  # recognizer crop height, fixed by the architecture
 
@@ -26,15 +26,15 @@ class VGGFeatures(nn.Module):
         super().__init__()
         oc = [out // 8, out // 4, out // 2, out]
         self.convs = nn.ModuleList([
-            nn.Conv2d(1, oc[0], 3, padding=1),
-            nn.Conv2d(oc[0], oc[1], 3, padding=1),
-            nn.Conv2d(oc[1], oc[2], 3, padding=1),
-            nn.Conv2d(oc[2], oc[2], 3, padding=1),
-            nn.Conv2d(oc[2], oc[3], 3, padding=1, bias=False),
-            nn.Conv2d(oc[3], oc[3], 3, padding=1, bias=False),
-            nn.Conv2d(oc[3], oc[3], 2),
+            Conv2d(1, oc[0], 3, padding=1),
+            Conv2d(oc[0], oc[1], 3, padding=1),
+            Conv2d(oc[1], oc[2], 3, padding=1),
+            Conv2d(oc[2], oc[2], 3, padding=1),
+            Conv2d(oc[2], oc[3], 3, padding=1, bias=False),
+            Conv2d(oc[3], oc[3], 3, padding=1, bias=False),
+            Conv2d(oc[3], oc[3], 2),
         ])
-        self.norms = nn.ModuleList([nn.GroupNorm(32, oc[3], eps=GROUPNORM_EPS) for _ in range(2)])
+        self.norms = nn.ModuleList([GroupNorm(32, oc[3]) for _ in range(2)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.convs
@@ -55,7 +55,7 @@ class BiLSTM(nn.Module):
     def __init__(self, cin: int, hidden: int, out: int):
         super().__init__()
         self.lstm = nn.LSTM(cin, hidden, batch_first=True, bidirectional=True)
-        self.proj = nn.Linear(2 * hidden, out)
+        self.proj = Linear(2 * hidden, out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y, _ = self.lstm(x)
@@ -70,7 +70,7 @@ class CRNN(nn.Module):
         self.features = VGGFeatures(features)
         self.rnn0 = BiLSTM(features, hidden, hidden)
         self.rnn1 = BiLSTM(hidden, hidden, hidden)
-        self.head = nn.Linear(hidden, num_classes)
+        self.head = Linear(hidden, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         seq = self.rnn1(self.rnn0(self.features(x)))

@@ -17,16 +17,24 @@ def _blend(degenerate: torch.Tensor, img: torch.Tensor, factor: float) -> torch.
     return torch.clamp(torch.floor(out + 0.5), 0.0, 255.0)
 
 
+# A float32 sum of this many values in [0, 255] is a whole number below
+# 2**24, so it is exact whatever the order of its additions.
+_EXACT_COLS = (1 << 24) // 255
+
+
 def rounded_mean(img: torch.Tensor) -> torch.Tensor:
     """PIL's ``int(ImageStat.mean + 0.5)`` per image over the last two axes.
 
-    ``img`` holds uint8 values. The sum is taken in int64, so it is exact at
-    any image size (a float32 sum of a 1312x1050 image is not), and divided
-    in float64 as PIL does in Python.
+    ``img`` holds uint8 values. Row sums are taken in float32 over chunks of
+    at most ``_EXACT_COLS`` columns, which is exact, and added up in float64,
+    exact below 2**53; no widened copy of the image is made. The total is
+    divided in float64 as PIL does in Python.
     """
-    total = img.to(torch.int64).sum(dim=(-2, -1))
-    n = img.shape[-2] * img.shape[-1]
-    return torch.floor(total.to(torch.float64) / n + 0.5).to(torch.float32)
+    h, w = img.shape[-2], img.shape[-1]
+    total = img[..., :_EXACT_COLS].sum(dim=-1).to(torch.float64).sum(dim=-1)
+    for c in range(_EXACT_COLS, w, _EXACT_COLS):
+        total = total + img[..., c : c + _EXACT_COLS].sum(dim=-1).to(torch.float64).sum(dim=-1)
+    return torch.floor(total / (h * w) + 0.5).to(torch.float32)
 
 
 def adjust_contrast(img: torch.Tensor, factor: float) -> torch.Tensor:

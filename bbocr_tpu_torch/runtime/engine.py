@@ -38,6 +38,7 @@ from bbocr_tpu_torch.models import (
     CRNN,
     EN_CHARSET,
     Charset,
+    cast_for_compute,
     charset_for_num_classes,
     craft_state_dict,
     crnn_state_dict,
@@ -110,10 +111,10 @@ class OCREngine:
         # ImageNet normalization are folded into its first conv.
         self.craft = CRAFT(gray_input=True)
         self.craft.load_state_dict(craft_state_dict(fold_gray_stem(craft_params)), strict=True)
-        self.craft.to(device=self.device, dtype=dtype).eval()
+        cast_for_compute(self.craft.to(self.device), dtype).eval()
         self.crnn = CRNN(num_classes=charset.num_classes)
         self.crnn.load_state_dict(crnn_state_dict(crnn_params), strict=True)
-        self.crnn.to(device=self.device, dtype=dtype).eval()
+        cast_for_compute(self.crnn.to(self.device), dtype).eval()
         self._lock = threading.Lock()
         self.timers = StageTimer()
 

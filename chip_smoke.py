@@ -10,14 +10,25 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 2. builds the CUDA kernels (nvcc) and the C++ labeler (g++) in parallel
    from the sources in the checkout, and prints the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version on the
-   card at 70x90 (N=2), 33x41 and at the slice's (1, 1312, 1050), and times
-   both there: ``ms`` and ``plain_ms`` are the median of 20 single calls
-   between CUDA events (launch included), ``device_ms`` the kernel's own
-   device time from torch.profiler;
+   card at nine shapes (the slice's (1, 1312, 1050) from the chain itself,
+   random images at 70x90 (N=2), 33x41, 1x1, 2x3, 3x8, 7x5 (N=2),
+   1313x1051 and 64x4099), and times each kernel at the slice's shape:
+   ``ms`` and ``plain_ms`` are the median of 20 single calls between CUDA
+   events (launch included), ``device_ms`` the kernel's own device time from
+   torch.profiler with a warm L2, ``device_ms_l2_flushed`` the same with a
+   64 MB write between calls; it also times the contrast mean
+   (``rounded_mean``) against the int64 sum it replaced;
 4. turns ``data/real/covers/book1.png`` into metadata JSON through the
    port's extractor on the card (default bfloat16 engine), with every
    kernel launch count set to 0 just before and read just after: each
-   kernel must have run;
+   kernel must have run; then profiles one warm photo with torch.profiler
+   and prints the top device ops, the device's idle share over the call
+   and the time inside the bfloat16 LSTM; times the photo's GroupNorm
+   calls in three forms (bfloat16 parameters, float32 input and
+   parameters, bfloat16 input with float32 parameters); and holds the
+   bfloat16 reading against the JAX package's, recorded in
+   ``tests/data/book1_jax_bf16.json``: the same box count, each box's
+   text and quad distance printed;
 5. reads the same photo in float32 (cuDNN TF32 off) with the kernels and
    with their plain versions: the preprocessed images and the box texts
    must be identical;
@@ -33,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -54,8 +66,10 @@ from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BOOK1 = os.path.join(ROOT, "data", "real", "covers", "book1.png")
 CKPT = os.path.join(ROOT, "checkpoints")
-# The JAX package's float32 reading of book1.png (scripts/torch_port_reference.py)
+# The JAX package's float32 and bfloat16 readings of book1.png on the CPU
+# (scripts/torch_port_reference.py)
 REFERENCE = os.path.join(ROOT, "tests", "data", "book1_jax_f32.json")
+REFERENCE_BF16 = os.path.join(ROOT, "tests", "data", "book1_jax_bf16.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SOURCE = "bbocr_tpu_torch/csrc/preprocess.cu"
@@ -67,6 +81,7 @@ KERNEL_INFO = {
     "unsharp_u8": (f"{PALLAS}:143", 2 * 2 * 7 + 12, "sepconv_u8_kernel"),
 }
 TIMING_REPS = 20
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
 def log(msg: str) -> None:
@@ -86,6 +101,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(build_log: str) -> list:
+    """One line per kernel instantiation from ``nvcc -Xptxas -v``:
+    registers, shared memory and spills."""
+    lines, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            args = re.search(r"(sepconv_u8_kernel)ILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+            name = f"{args.group(1)}<R={args.group(2)},border={args.group(3)},epilogue={args.group(4)}>" if args else (
+                "enhance_u8_kernel" if "enhance_u8_kernel" in mangled else mangled)
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return lines
+
+
 def build_all() -> float:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -95,9 +129,8 @@ def build_all() -> float:
     kernel_build.load()
     native_loader.load()
     seconds = time.perf_counter() - t0
-    for line in kernel_build.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for line in ptxas_report(kernel_build.build_log):
+        print(f"  ptxas: {line}", flush=True)
     return seconds
 
 
@@ -116,15 +149,19 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(times)
 
 
-def profiled_device_ms(fn, symbol: str, reps: int = TIMING_REPS):
+def profiled_device_ms(fn, symbol: str, reps: int = TIMING_REPS, flush: bool = False):
     """Device time per call of the kernels whose name holds ``symbol``, from
-    torch.profiler's CUDA trace; None when the trace has no such kernel."""
+    torch.profiler's CUDA trace; None when the trace has no such kernel.
+    ``flush``: write 64 MB between calls, so each finds its input out of L2."""
     from torch.profiler import ProfilerActivity, profile
 
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if flush else None
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush:
+                scratch.fill_(1.0)
             fn()
         torch.cuda.synchronize()
     total_us = sum(e.self_device_time_total for e in prof.key_averages() if symbol in e.key)
@@ -157,12 +194,38 @@ def call(name: str, args, plain: bool):
     return fn(*args)
 
 
+def rounded_mean_int64(img: torch.Tensor) -> torch.Tensor:
+    """The contrast mean as it was first taken: an int64 copy of the image, summed."""
+    total = img.to(torch.int64).sum(dim=(-2, -1))
+    return torch.floor(total.to(torch.float64) / (img.shape[-2] * img.shape[-1]) + 0.5).to(torch.float32)
+
+
+def time_rounded_mean(x: torch.Tensor) -> None:
+    if not torch.equal(rounded_mean(x), rounded_mean_int64(x)):
+        fail("rounded_mean differs from the int64 sum")
+    # in turns: before, after, after, before
+    times = {"int64": [], "float": []}
+    for which in ("int64", "float", "float", "int64"):
+        fn = (lambda: rounded_mean_int64(x)) if which == "int64" else (lambda: rounded_mean(x))  # noqa: E731
+        times[which].append(median_ms(fn))
+        times[which].append(profiled_device_ms(fn, ""))
+    show = {k: " / ".join("not measured" if t is None else f"{t:.5f}" for t in v) for k, v in times.items()}
+    print(f"rounded_mean at {tuple(x.shape)} (per call ms / device ms, twice each): "
+          f"int64 sum {show['int64']}; float32 rows + float64 total {show['float']}", flush=True)
+
+
 def check_kernels(rgb: np.ndarray, dev) -> dict:
-    """Bit-exactness at three shapes; timings at the slice's shape."""
+    """Bit-exactness at nine shapes; timings at the slice's shape."""
     cases = [
+        ("1x1312x1050", chain_inputs(rgb, dev)),
         ("2x70x90", random_inputs(2, 70, 90, 0, dev)),
         ("1x33x41", random_inputs(1, 33, 41, 1, dev)),
-        ("1x1312x1050", chain_inputs(rgb, dev)),
+        ("1x1x1", random_inputs(1, 1, 1, 2, dev)),
+        ("1x2x3", random_inputs(1, 2, 3, 3, dev)),
+        ("1x3x8", random_inputs(1, 3, 8, 4, dev)),
+        ("2x7x5", random_inputs(2, 7, 5, 5, dev)),
+        ("1x1313x1051", random_inputs(1, 1313, 1051, 6, dev)),
+        ("1x64x4099", random_inputs(1, 64, 4099, 7, dev)),
     ]
     report = {}
     for name in kernels.KERNELS:
@@ -177,30 +240,33 @@ def check_kernels(rgb: np.ndarray, dev) -> dict:
             worst = max(worst, err)
             if err != 0.0:
                 fail(f"{name} at {label}: max abs diff {err} against the plain version (must be 0)")
-        args = cases[-1][1][name]
+        args = cases[0][1][name]
         n, h, w = args[0].shape
         bytes_moved = 2 * n * h * w * 4 + (n * 4 if name == "enhance_u8" else 0)
         ops = n * h * w * KERNEL_INFO[name][1]
         byte_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         op_ms = ops / F32_OPS_PER_S * 1e3
+        kernel = lambda: call(name, args, plain=False)  # noqa: E731
         report[name] = {
             "name": name,
             "route": "cuda",
             "source": SOURCE,
             "replaces": KERNEL_INFO[name][0],
             "max_abs_err": worst,
-            "ms": median_ms(lambda: call(name, args, plain=False)),
+            "ms": median_ms(kernel),
             "plain_ms": median_ms(lambda: call(name, args, plain=True)),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": None,
-            "device_ms": profiled_device_ms(lambda: call(name, args, plain=False), KERNEL_INFO[name][2]),
+            "device_ms": profiled_device_ms(kernel, KERNEL_INFO[name][2]),
+            "device_ms_l2_flushed": profiled_device_ms(kernel, KERNEL_INFO[name][2], flush=True),
         }
         r = report[name]
-        device = "not measured" if r["device_ms"] is None else f"{r['device_ms']:.5f} ms"
+        shown = {k: "not measured" if r[k] is None else f"{r[k]:.5f} ms" for k in ("device_ms", "device_ms_l2_flushed")}
         log(f"{name}: bit-exact at {[c[0] for c in cases]}; at {n}x{h}x{w}: "
-            f"{r['ms']:.5f} ms per call (plain {r['plain_ms']:.5f} ms), "
-            f"kernel device time {device}, bound {r['bound_ms']:.5f} ms")
+            f"{r['ms']:.5f} ms per call (plain {r['plain_ms']:.5f} ms), kernel device time "
+            f"{shown['device_ms']} warm, {shown['device_ms_l2_flushed']} L2 flushed, bound {r['bound_ms']:.5f} ms")
+    time_rounded_mean(cases[0][1]["enhance_u8"][0])
     return report
 
 
@@ -215,6 +281,105 @@ def run_slice(dev):
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
     return meta, launches, seconds, extractor
+
+
+def profile_warm_photo(extractor) -> None:
+    """torch.profiler over one warm bfloat16 photo: the top device ops, the
+    device's idle share over the call, and the time inside the LSTM."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        extractor.extract_metadata_from_images([BOOK1], ocr_image_indices=[0])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    busy = sorted((e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA)
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    span = (min(e.time_range.start for e in cpu), max(e.time_range.end for e in cpu)) if cpu else (0, 1)
+    union, end = 0.0, None
+    for a, b in busy:
+        a, b = max(a, span[0]), min(b, span[1])
+        if end is None or a > end:
+            union += max(0.0, b - a)
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    length = span[1] - span[0]
+    device_total = sum(b - a for a, b in busy)
+    print(f"warm photo under the profiler: {wall_us / 1e3:.3f} ms wall; traced span {length / 1e3:.3f} ms; "
+          f"device busy {union / 1e3:.3f} ms (kernel time {device_total / 1e3:.3f} ms); "
+          f"device idle share {1 - union / length:.4f}", flush=True)
+    rows = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    print("top device ops (self device ms, calls, name):", flush=True)
+    for e in rows[:15]:
+        print(f"  {e.self_device_time_total / 1e3:9.4f} ms  {e.count:5d}  {e.key[:110]}", flush=True)
+    for e in prof.key_averages():
+        if e.key in ("aten::lstm", "aten::_cudnn_rnn", "aten::_cudnn_rnn_flatten_weight", "aten::linear", "aten::conv2d"):
+            print(f"op {e.key}: {e.count} calls, {e.cpu_time_total / 1e3:.3f} ms host total, "
+                  f"{e.device_time_total / 1e3:.3f} ms device total", flush=True)
+
+
+def time_groupnorm(engine: OCREngine, image: np.ndarray) -> None:
+    """Device time per photo of the GroupNorm calls of one bfloat16 read, in
+    three forms on the same inputs: PR 4's (parameters rounded to
+    bfloat16), the port's (input cast to float32, float32 parameters, one
+    rounding) and a bfloat16 input with float32 parameters, which PyTorch's
+    CUDA group_norm may refuse."""
+    import torch.nn.functional as F
+
+    calls = []
+    norms = [m for model in (engine.craft, engine.crnn) for m in model.modules() if isinstance(m, torch.nn.GroupNorm)]
+    hooks = [m.register_forward_pre_hook(lambda m, args: calls.append((m, args[0].detach().clone()))) for m in norms]
+    try:
+        engine.readtext(image)
+    finally:
+        for h in hooks:
+            h.remove()
+    low = {m: (m.weight.to(torch.bfloat16), m.bias.to(torch.bfloat16)) for m in norms}
+    forms = {
+        "bfloat16 parameters (PR 4)": lambda m, x: F.group_norm(x, m.num_groups, *low[m], m.eps),
+        "float32 input and parameters, one rounding (PR 5)": lambda m, x: m(x),
+        "bfloat16 input, float32 parameters": lambda m, x: F.group_norm(x, m.num_groups, m.weight, m.bias, m.eps),
+    }
+    print(f"GroupNorm in one bfloat16 read: {len(calls)} calls on "
+          f"{sum(x.numel() for _, x in calls) * 2 / 1e6:.1f} MB of bfloat16 input", flush=True)
+    for name, form in forms.items():
+        def photo(form=form):
+            with torch.no_grad():
+                for m, x in calls:
+                    form(m, x)
+        try:
+            photo()
+        except RuntimeError as e:
+            print(f"  {name}: refused by PyTorch {torch.__version__} on the card: {str(e).splitlines()[0]}", flush=True)
+            continue
+        device = profiled_device_ms(photo, "", reps=5)
+        print(f"  {name}: {median_ms(photo, reps=5):.4f} ms per photo (CUDA events), "
+              f"{'not measured' if device is None else f'{device:.4f} ms'} device time", flush=True)
+
+
+def check_bf16_reading(res) -> None:
+    """The card's default bfloat16 reading against the JAX package's on the
+    CPU: the box count must be equal; each box's text and quad distance are
+    printed. The two packages still round differently in the LSTM and sum
+    convolutions in other orders (ROADMAP Queue 3), so texts and quads are
+    recorded, not required (PERF.md, PR 5 review round)."""
+    with open(REFERENCE_BF16) as f:
+        ref = json.load(f)
+    print(f"bfloat16 reading against the JAX package's: {len(res)} boxes, reference {len(ref['texts'])}", flush=True)
+    if len(res) != len(ref["texts"]):
+        fail(f"bfloat16 reading: {len(res)} boxes against {len(ref['texts'])} in the JAX reference")
+    equal, worst = 0, 0.0
+    for i, ((q, text, _), rq, rtext) in enumerate(zip(res, ref["quads"], ref["texts"])):
+        err = float(np.abs(np.asarray(q) - np.asarray(rq)).max())
+        equal, worst = equal + (text == rtext), max(worst, err)
+        print(f"  box {i}: {text!r} (JAX {rtext!r}), quad within {err:.4f} px", flush=True)
+    print(f"bfloat16 reading: {equal} of {len(res)} texts equal to the JAX reference, quads within {worst:.4f} px", flush=True)
 
 
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
@@ -260,6 +425,10 @@ def main() -> int:
     extractor.extract_metadata_from_images([BOOK1], ocr_image_indices=[0])
     torch.cuda.synchronize()
     print(f"slice seconds, second run: {time.perf_counter() - t0:.3f}", flush=True)
+    profile_warm_photo(extractor)
+    image = _preprocess(rgb, 1.5, dev, KERNEL_OPS).cpu().numpy()
+    time_groupnorm(extractor.engine, image)
+    check_bf16_reading(extractor.engine.readtext(image))
 
     log("phase 5: float32, cuDNN TF32 off: kernels against plain versions end to end")
     torch.backends.cudnn.allow_tf32 = False
@@ -292,7 +461,7 @@ def main() -> int:
 
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms"]
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

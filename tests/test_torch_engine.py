@@ -142,11 +142,12 @@ def test_readtext_matches_jax_engine(engines, cover_u8):
 
 
 def test_readtext_bf16_matches_jax_engine(cover_u8):
-    """The default bfloat16 engines of both packages. XLA and PyTorch round
-    bfloat16 at different points, so a detection score near the threshold
-    can flip and move a box edge by one map pixel: CRAFT's maps are at half
-    resolution, so quads agree within 2 px. Where the quads are equal the
-    crops are too, and the texts must be equal."""
+    """The default bfloat16 engines of both packages. The port rounds where
+    flax does (``models.layers``), but conv sums run in another order and
+    XLA's fusions skip some roundings under ``jit``, so a detection score
+    near the threshold can still flip and move a box edge by one map pixel:
+    CRAFT's maps are at half resolution, so quads agree within 2 px. Every
+    box must read the same text."""
     jax_engine = _jax_engine(config=JaxEngineConfig(
         canvases=(JaxCanvasSpec(*CANVAS),), compute_dtype=jnp.bfloat16, host_rectify=False,
         wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
@@ -158,8 +159,7 @@ def test_readtext_bf16_matches_jax_engine(cover_u8):
     assert len(ref) > 0 and len(got) == len(ref)
     for (q, t, _), (rq, rt, _) in zip(got, ref):
         assert np.abs(q - rq).max() <= 2.0
-        if np.array_equal(q, rq):
-            assert t == rt
+        assert t == rt
 
 
 def test_extractor_makes_valid_json(engines, tmp_path):

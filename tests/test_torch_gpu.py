@@ -30,7 +30,13 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("shape", [(2, 70, 90), (1, 33, 41), (1, 1312, 1050)])
+# the slice's shape and its neighbours, odd widths, images smaller than the
+# 7-tap halo, and a row pitch that is not 8-byte aligned
+SHAPES = [(2, 70, 90), (1, 33, 41), (1, 1312, 1050), (1, 1, 1), (1, 2, 3), (1, 3, 8), (2, 7, 5),
+          (1, 1313, 1051), (1, 64, 4099)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 def test_cuda_kernels_match_plain(cuda_device, shape):
     """Bit-exact: the kernels round every operation as the plain versions do."""
     x = torch.from_numpy(np.random.default_rng(8).integers(0, 256, shape).astype(np.float32)).to(cuda_device)
@@ -40,6 +46,23 @@ def test_cuda_kernels_match_plain(cuda_device, shape):
     assert torch.equal(kernels.unsharp_u8(x), kernels.unsharp_u8_plain(x))
     assert torch.equal(kernels.enhance_u8(x, mean, 1.9, 1.2), kernels.enhance_u8_plain(x, mean, 1.9, 1.2))
     assert all(fn.launches == 1 for fn in kernels.KERNELS.values())
+
+
+@pytest.mark.parametrize("percent", [30, 31.5, -200, 70000])
+def test_cuda_unsharp_takes_any_percent(cuda_device, percent):
+    """Integer percents up to 65793 divide in integers, others in float:
+    both bit-exact against the plain version."""
+    x = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (1, 97, 300)).astype(np.float32)).to(cuda_device)
+    assert torch.equal(kernels.unsharp_u8(x, percent, 0), kernels.unsharp_u8_plain(x, percent, 0))
+
+
+def test_cuda_kernels_take_an_unaligned_view(cuda_device):
+    """A contiguous view 4 bytes past an 8-byte boundary takes the 4-byte path."""
+    flat = torch.from_numpy(np.random.default_rng(10).integers(0, 256, 2 * 40 * 64 + 1).astype(np.float32)).to(cuda_device)
+    x = flat[1:].view(2, 40, 64)
+    assert x.data_ptr() % 8 == 4
+    assert torch.equal(kernels.blur3_u8(x), kernels.blur3_u8_plain(x))
+    assert torch.equal(kernels.unsharp_u8(x), kernels.unsharp_u8_plain(x))
 
 
 def test_cuda_chain_matches_plain_chain(cuda_device):

@@ -28,6 +28,8 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOOK1 = os.path.join(ROOT, "data", "real", "covers", "book1.png")
 SHAPES = [(2, 70, 90), (1, 33, 41)]  # tests/test_kernels.py's shapes
+# images narrower or shorter than the 7-tap halo, odd widths
+TINY_SHAPES = [(1, 1, 1), (1, 2, 3), (1, 3, 8), (2, 7, 5)]
 
 
 def _u8(shape, seed):
@@ -36,7 +38,7 @@ def _u8(shape, seed):
 
 # Bit-exact: the plain versions are what the CUDA kernels are held to, and
 # they must equal the Pallas kernels exactly (uint8 values, no tolerance).
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + TINY_SHAPES)
 def test_blur3_plain_matches_pallas(shape):
     x = _u8(shape, 0)
     ref = np.asarray(blur3_u8_pallas(jnp.asarray(x), 3.0))
@@ -44,7 +46,25 @@ def test_blur3_plain_matches_pallas(shape):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+def test_blur3_plain_is_xla_blur_where_pallas_interpret_parts():
+    """Pins a known disagreement (ROADMAP Queue 3): on this image the
+    interpret-mode Pallas blur3 puts a few pixels whose sum sits on a .5 tie
+    on the other side of the rounding, by one level. The plain version,
+    which the CUDA kernel equals, is ``bbocr_tpu.ops.gaussian_blur`` bit for
+    bit. Should either side change, this test says so."""
+    x = _u8((1, 64, 4099), 0)
+    got = kernels.blur3_u8(torch.from_numpy(x), 3.0).numpy()
+    xla = np.asarray(jops.gaussian_blur(jnp.asarray(x), 3, 3.0))
+    np.testing.assert_array_equal(got, xla)
+    pallas = np.asarray(blur3_u8_pallas(jnp.asarray(x), 3.0))
+    parts = got != pallas
+    assert parts.any()
+    assert np.abs(got - pallas).max() == 1.0
+    unrounded = np.asarray(jops.gaussian_blur(jnp.asarray(x), 3, 3.0, quantize=False))[parts]
+    assert np.abs(unrounded - np.floor(unrounded) - 0.5).max() <= 1e-4
+
+
+@pytest.mark.parametrize("shape", SHAPES + TINY_SHAPES)
 def test_unsharp_plain_matches_pallas(shape):
     x = _u8(shape, 1)
     ref = np.asarray(unsharp_u8_pallas(jnp.asarray(x), 30, 3, 1.0))
@@ -52,7 +72,7 @@ def test_unsharp_plain_matches_pallas(shape):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + TINY_SHAPES)
 def test_enhance_plain_matches_pallas(shape):
     x = _u8(shape, 2)
     jmean = jnp.floor(jnp.mean(jnp.asarray(x), axis=(1, 2)) + 0.5)
@@ -62,6 +82,18 @@ def test_enhance_plain_matches_pallas(shape):
     ref = np.asarray(enhance_u8_pallas(jnp.asarray(x), jmean, 1.9, 1.2))
     got = kernels.enhance_u8(torch.from_numpy(x), mean, 1.9, 1.2).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", [(1, 1312, 1050), (1, 255, 255), (2, 3, 70000)])
+def test_rounded_mean_is_exact(shape):
+    """The float32 row sums (in column chunks past 65,793 columns) and the
+    float64 total equal an int64 sum: PIL's integer mean, to the last bit."""
+    x = torch.from_numpy(_u8(shape, 9))
+    x[0, 0] = 255.0  # the largest partial sums
+    total = x.to(torch.int64).sum(dim=(-2, -1)).to(torch.float64)
+    ref = torch.floor(total / (shape[1] * shape[2]) + 0.5).to(torch.float32)
+    assert torch.equal(ops.rounded_mean(x), ref)
+    assert torch.equal(ops.rounded_mean(torch.full(shape, 255.0)), torch.full(shape[:1], 255.0))
 
 
 @pytest.mark.parametrize("shape", SHAPES)
