@@ -5,8 +5,9 @@ save ``book_<id>_enhanced.json`` and print a summary.
     python -m bbocr_tpu_torch.cli.process_book 1 --ocr-indices 0 1
     python -m bbocr_tpu_torch.cli.process_book --book-dir path/to/book --device cpu
 
-Only the knobs of the ported path are offered: no rotation search, no
-re-reads, no fast path, no LLM.
+Only the knobs of the ported path are offered: the rotation search
+(``--auto-rotate``, off by default as in the JAX CLI), but no re-reads, no
+fast path, no LLM.
 """
 
 from __future__ import annotations
@@ -30,14 +31,17 @@ def find_books_dir(explicit: Optional[str] = None) -> Optional[str]:
     return root if os.path.isdir(root) else None
 
 
-def make_extractor(device="cuda", use_preprocessing: bool = True, edge_crop_percent: float = 0.0) -> BookMetadataExtractor:
-    """The ported configuration of ``BookMetadataExtractor``."""
+def make_extractor(
+    device="cuda", use_preprocessing: bool = True, edge_crop_percent: float = 0.0, auto_rotate=False,
+) -> BookMetadataExtractor:
+    """The ported configuration of ``BookMetadataExtractor``. ``auto_rotate``:
+    True, False, or None to decide per image as the extractor does."""
     return BookMetadataExtractor(
         llm_backend="heuristic",
         use_preprocessing=use_preprocessing,
         crop_for_ocr=False,
         edge_crop_percent=edge_crop_percent,
-        auto_rotate=False,
+        auto_rotate=auto_rotate,
         reread_low_conf=False,
         isbn_reread=False,
         fast_single=False,
@@ -74,6 +78,8 @@ def main():
     p.add_argument("--llm-backend", default="heuristic", choices=["heuristic"])
     p.add_argument("--no-preprocessing", action="store_true")
     p.add_argument("--edge-crop", type=float, default=0.0)
+    p.add_argument("--auto-rotate", action="store_true",
+                   help="read each photo at the four right-angle rotations and keep the best")
     p.add_argument("--ocr-indices", type=int, nargs="+")
     p.add_argument("--output-dir", default="output")
     p.add_argument("--device", default="cuda")
@@ -90,7 +96,7 @@ def main():
         book_dir = os.path.join(root, args.book_id)
     if not os.path.isdir(book_dir):
         p.error(f"not a directory: {book_dir}")
-    extractor = make_extractor(args.device, not args.no_preprocessing, args.edge_crop)
+    extractor = make_extractor(args.device, not args.no_preprocessing, args.edge_crop, args.auto_rotate)
     try:
         process_book(book_dir, extractor, output_dir=args.output_dir, ocr_indices=args.ocr_indices)
     except Exception as e:

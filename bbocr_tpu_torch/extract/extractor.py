@@ -6,12 +6,17 @@ read by the OCR engine, grouped into lines, and structured by the
 heuristics into metadata that passes the schema. No LLM client and no HTTP
 session exist here.
 
+``auto_rotate`` (``None``: per image, as in the JAX package) reads the
+photo at the four right-angle rotations (``runtime/orient.py``). Photos
+over the OCR size limit are downscaled with Pillow's BILINEAR resample,
+reproduced in numpy (``ops.pil_bilinear_resize_u8``).
+
 Knobs whose modules are not ported yet raise ``NotImplementedError``
 naming their ROADMAP.md item: LLM backends, auto-crop, re-reads, the
-single-dispatch fast path, rotations, and traces. ``auto_rotate`` and
-``fast_single`` left at ``None`` resolve per image as in the JAX package,
-and raise when they resolve to True. Errors propagate: unlike the JAX
-extractor, a failed OCR call is not turned into empty text.
+single-dispatch fast path, and traces. ``fast_single`` left at ``None``
+resolves per image as in the JAX package, and raises when it resolves to
+True. Errors propagate: unlike the JAX extractor, a failed OCR call is not
+turned into empty text.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import numpy as np
 from bbocr_tpu_torch.extract.heuristics import heuristic_extract, heuristic_extract_lines
 from bbocr_tpu_torch.extract.schema import validate_schema
 from bbocr_tpu_torch.io import load_rgb
+from bbocr_tpu_torch.ops import pil_bilinear_resize_u8
+from bbocr_tpu_torch.runtime.orient import read_with_rotations
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".gif", ".bmp", ".tiff")
 _CKPT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "checkpoints")
@@ -62,8 +69,6 @@ class BookMetadataExtractor:
             raise _not_ported("crop_for_ocr=True (auto-crop)")
         if isbn_reread or reread_low_conf:
             raise _not_ported("isbn_reread / reread_low_conf (re-reads)")
-        if auto_rotate:
-            raise _not_ported("auto_rotate=True (rotations, runtime/orient.py)")
         if fast_single:
             raise _not_ported("fast_single=True (single-dispatch fast path)")
         self.model = model
@@ -121,16 +126,20 @@ class BookMetadataExtractor:
         max_dim = 1600 if (image_index is None or image_index == 0) else 2400
         h, w = image.shape[:2]
         orig_long_side = max(h, w)
+        # camera photos arrive sideways
         rotate = self.auto_rotate if self.auto_rotate is not None else orig_long_side >= 1200
-        if rotate:
-            raise _not_ported("auto_rotate resolving to True for a camera-shaped photo (rotations)")
-        use_fast = self.fast_single if self.fast_single is not None else orig_long_side < 1200
+        use_fast = self.fast_single if self.fast_single is not None else (not rotate and orig_long_side < 1200)
         if use_fast:
             raise _not_ported("fast_single resolving to True for an upright small photo (fast path)")
         if orig_long_side > max_dim:
-            image = _pil_bilinear_resize(image, max_dim / orig_long_side)
+            scale = max_dim / orig_long_side
+            u8 = np.clip(image, 0, 255).astype(np.uint8)
+            image = pil_bilinear_resize_u8(u8, int(w * scale), int(h * scale)).astype(np.float32)
 
-        res = self.engine.readtext(image)
+        if rotate:
+            res, _ = read_with_rotations(self.engine, image)
+        else:
+            res = self.engine.readtext(image)
         from bbocr_tpu_torch.decode import group_lines
 
         infos = []
@@ -218,13 +227,3 @@ class BookMetadataExtractor:
             raise FileNotFoundError(f"No image files found in {book_dir}")
         return self.extract_metadata_from_images(paths, ocr_image_indices)
 
-
-def _pil_bilinear_resize(image: np.ndarray, scale: float) -> np.ndarray:
-    """PIL BILINEAR downscale, as the JAX extractor does for large images."""
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError("downscaling an image over the OCR size limit needs Pillow") from e
-    h, w = image.shape[:2]
-    pil = Image.fromarray(np.clip(image, 0, 255).astype(np.uint8))
-    return np.asarray(pil.resize((int(w * scale), int(h * scale)), Image.BILINEAR), np.float32)

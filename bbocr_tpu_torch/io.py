@@ -4,8 +4,10 @@
 with the standard library's ``zlib`` and numpy. The five scanline filters
 are undone along anti-diagonals: a pixel depends only on its left, upper
 and upper-left neighbours, so every pixel of one anti-diagonal can be
-decoded at once whatever filter each row uses. Other images (JPEG, palette
-or 16-bit PNG) go through Pillow, imported only then.
+decoded at once whatever filter each row uses. Baseline JPEGs are decoded
+by the C++ decoder of ``native/jpeg.py``, bit for bit as Pillow decodes
+them. Other images (progressive JPEG, palette or 16-bit PNG, other formats)
+go through Pillow, imported only then.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from bbocr_tpu_torch.native.jpeg import UnsupportedJPEG, read_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG color type -> samples per pixel
@@ -85,13 +89,13 @@ def read_png(path: str) -> np.ndarray:
     return img[..., 0] if c == 1 else img
 
 
-def _read_with_pillow(path: str) -> np.ndarray:
+def _read_with_pillow(path: str, why: str = "") -> np.ndarray:
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
             f"{path}: reading this image needs Pillow, which is not installed "
-            "(PNGs of 8-bit gray, RGB or RGBA are read without it)"
+            f"(PNGs of 8-bit gray, RGB or RGBA and baseline JPEGs are read without it){why}"
         ) from e
     with Image.open(path) as img:
         return np.asarray(img.convert("RGB"))
@@ -106,6 +110,11 @@ def load_rgb(path_or_array) -> np.ndarray:
             arr = read_png(str(path_or_array))
         except UnsupportedPNG:
             arr = _read_with_pillow(str(path_or_array))
+    elif str(path_or_array).lower().endswith((".jpg", ".jpeg")):
+        try:
+            arr = read_jpeg(str(path_or_array))
+        except UnsupportedJPEG as e:
+            arr = _read_with_pillow(str(path_or_array), f": {e}")
     else:
         arr = _read_with_pillow(str(path_or_array))
     if arr.ndim == 2:

@@ -1,11 +1,10 @@
 """flax parameter trees -> torch state dicts.
 
 Layout rules: conv kernels HWIO -> OIHW; ``Dense`` kernels (in, out) ->
-``Linear`` weights (out, in); ``LSTMScan`` ``w_ih``/``w_hh``/``b_ih`` ->
-``weight_ih_l0``/``weight_hh_l0``/``bias_ih_l0`` (``_reverse`` for the
-backward direction) with ``bias_hh_l0 = 0``, since the JAX LSTM has one
-bias; GroupNorm ``scale``/``bias`` -> ``weight``/``bias``. Load the result
-with ``strict=True``: every key on both sides must be used.
+``Linear`` weights (out, in); ``LSTMScan`` ``w_ih``/``w_hh``/``b_ih`` keep
+the JAX layout and names (``rnn0.fwd.w_ih``); GroupNorm ``scale``/``bias``
+-> ``weight``/``bias``. Load the result with ``strict=True``: every key on
+both sides must be used.
 """
 
 from __future__ import annotations
@@ -77,17 +76,9 @@ def crnn_state_dict(params: Any) -> Dict[str, torch.Tensor]:
             kind = "convs" if parts[1].startswith("Conv_") else "norms"
             sd.update(_layer(f"features.{kind}.{_num(parts[1])}", leaf, value))
         elif re.fullmatch(r"rnn\d", parts[0]) and parts[1] in ("fwd", "bwd"):
-            sfx = "l0" if parts[1] == "fwd" else "l0_reverse"
-            base = f"{parts[0]}.lstm"
-            if leaf == "w_ih":
-                sd[f"{base}.weight_ih_{sfx}"] = value.T
-            elif leaf == "w_hh":
-                sd[f"{base}.weight_hh_{sfx}"] = value.T
-            elif leaf == "b_ih":
-                sd[f"{base}.bias_ih_{sfx}"] = value
-                sd[f"{base}.bias_hh_{sfx}"] = np.zeros_like(value)
-            else:
+            if leaf not in ("w_ih", "w_hh", "b_ih"):
                 raise KeyError(f"unexpected LSTM parameter {key}")
+            sd[f"{parts[0]}.{parts[1]}.{leaf}"] = value
         elif re.fullmatch(r"rnn\d", parts[0]) and parts[1] == "proj":
             sd.update(_layer(f"{parts[0]}.proj", leaf, value))
         elif parts[0] == "head":

@@ -1,5 +1,8 @@
 """Build the C++ connected-components labeler with g++ and bind it.
 
+``build_library`` builds any of the package's C++ sources the same way
+(``native/jpeg.py`` builds the JPEG decoder with it).
+
 Counterpart of ``bbocr_tpu/native/loader.py``. The library is built at
 first use into ``bbocr_tpu_torch/native/build/``, named by a hash of the
 source, through a process-unique temporary file renamed into place. Unlike
@@ -31,25 +34,27 @@ _lock = threading.Lock()
 _lib = None
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def build_library(source: str, stem: str) -> str:
+    """g++ ``source`` into ``build/<stem>_<hash>.so`` unless it is there;
+    raises if g++ fails."""
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libbbocr_native_{digest}.so")
-
-
-def build() -> str:
-    path = library_path()
+    path = os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        ["g++", *_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True, timeout=300
+        ["g++", *_FLAGS, "-o", tmp, source], capture_output=True, text=True, timeout=300
     )
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)
     return path
+
+
+def build() -> str:
+    return build_library(SOURCE, "libbbocr_native")
 
 
 def load() -> ctypes.CDLL:

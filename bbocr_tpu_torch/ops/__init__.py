@@ -14,7 +14,7 @@ from bbocr_tpu_torch.ops.filters import (
 )
 from bbocr_tpu_torch.ops.histogram import clahe
 from bbocr_tpu_torch.ops.pil_enhance import adjust_brightness, adjust_contrast, rounded_mean
-from bbocr_tpu_torch.ops.resize import resize_bicubic
+from bbocr_tpu_torch.ops.resize import pil_bilinear_resize_u8, resize_bicubic
 
 __all__ = [
     "quantize_u8",
@@ -28,5 +28,6 @@ __all__ = [
     "adjust_brightness",
     "adjust_contrast",
     "rounded_mean",
+    "pil_bilinear_resize_u8",
     "resize_bicubic",
 ]

@@ -1,10 +1,13 @@
-"""Resize as two matrix products, cv2 INTER_CUBIC parity.
+"""Resize as two matrix products, cv2 INTER_CUBIC parity; and Pillow's
+BILINEAR resample of a uint8 image, in numpy.
 
 Counterpart of ``bbocr_tpu/ops/resize.py``: ``out = W_rows @ img @ W_cols^T``
 with the (n_out, n_in) resampling matrices built in numpy (half-pixel
 centers, cubic a = -0.75, edge clamping). The products are plain
 ``torch.matmul`` calls outside any kernel; in float32 they must not run in
-TF32, which would cost the uint8 parity.
+TF32, which would cost the uint8 parity. ``pil_bilinear_resize_u8`` is the
+extractor's downscale of photos over its size limit (host work, as the
+JAX extractor's Pillow call is).
 """
 
 from __future__ import annotations
@@ -59,3 +62,60 @@ def resize_bicubic(img: torch.Tensor, out_h: int, out_w: int, quantize: bool = T
     wc = torch.from_numpy(_resample_matrix(out_w, w)).to(img.device)
     out = torch.matmul(torch.matmul(wr, img), wc.T)
     return quantize_u8(out) if quantize else out
+
+
+# Pillow's Resample.c: fixed-point coefficients for 8-bit images.
+_PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bilinear_coeffs(in_size: int, out_size: int):
+    """``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the BILINEAR
+    filter (support 1): (first source index, int32 weights (out, ksize))."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = np.arange(ksize)
+    w = np.maximum(1.0 - np.abs((taps[None, :] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale)), 0.0)
+    w[taps[None, :] >= xmax[:, None]] = 0.0
+    total = np.zeros(out_size)
+    for k in range(ksize):  # summed in tap order, as the C loop does
+        total += w[:, k]
+    w = np.where(total[:, None] != 0.0, w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    fixed = np.trunc(0.5 + w * (1 << _PIL_PRECISION_BITS)).astype(np.int64)
+    return xmin, fixed
+
+
+def _pil_pass(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One 8-bit resampling pass along ``axis`` (0 rows, 1 columns)."""
+    xmin, k = _pil_bilinear_coeffs(img.shape[axis], out_size)
+    src = np.moveaxis(img.astype(np.int64), axis, 0)
+    idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None, :], src.shape[0] - 1)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    for t in range(k.shape[1]):
+        acc += src[idx[:, t]] * k[:, t].reshape((-1,) + (1,) * (src.ndim - 1))
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def pil_bilinear_resize_u8(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
+    """``Image.fromarray(img).resize((out_w, out_h), Image.BILINEAR)`` for a
+    (H, W) uint8 image, bit for bit, in numpy.
+
+    Pillow's ``Resample.c``: the triangle filter's support widens with the
+    downscale factor, sample centres at ``(x + 0.5) * scale``, weights
+    normalised and turned into 22-bit fixed point; the horizontal pass runs
+    first, each pass rounds and clips to uint8, and a pass whose size does
+    not change is skipped.
+    """
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise ValueError("pil_bilinear_resize_u8 takes a (H, W) uint8 image")
+    out = img
+    if out_w != img.shape[1]:
+        out = _pil_pass(out, out_w, 1)
+    if out_h != img.shape[0]:
+        out = _pil_pass(out, out_h, 0)
+    return out.copy() if out is img else out

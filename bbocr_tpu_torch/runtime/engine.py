@@ -50,6 +50,8 @@ from bbocr_tpu_torch.runtime.rectify import quad_to_rect_homography, warp_crops
 from bbocr_tpu_torch.utils.checkpoint import load_params
 from bbocr_tpu_torch.utils.profiling import StageTimer
 
+_INV_127_5 = float(np.float32(1.0 / 127.5))
+
 # Photos per detect batch; a batch's row count is padded to this menu.
 _CHUNK = 8
 _ROW_MENU = (1, 2, 4, _CHUNK)
@@ -150,7 +152,7 @@ class OCREngine:
 
     @torch.no_grad()
     def _decode(self, crops: torch.Tensor, lengths: torch.Tensor):
-        x = (crops / 127.5 - 1.0)[:, None]
+        x = _to_unit_range(crops)[:, None]
         logits = self.crnn(x.to(self.config.compute_dtype))
         return ctc_greedy_decode(logits, lengths)
 
@@ -342,12 +344,35 @@ class OCREngine:
         return results
 
 
+def _to_unit_range(crops: torch.Tensor) -> torch.Tensor:
+    """[0, 255] -> [-1, 1] as the JAX engine's compiled program computes
+    ``crops / 127.5 - 1``: one fused multiply-add by the float32 reciprocal
+    (emulated in float64)."""
+    return (crops.double() * _INV_127_5 - 1.0).float()
+
+
+def _percentile(ordered: torch.Tensor, pct: float) -> torch.Tensor:
+    """``jnp.percentile(x, pct)`` (linear) over the sorted rows of
+    ``ordered`` (N, n), float32, as XLA computes it on the CPU inside the
+    JAX engine's compiled ``_contrast_stretch``: the index is
+    ``(pct / 100) * (n - 1)`` in float32, and the interpolation
+    ``low * (1 - w) + high * w`` is one fused multiply-add (emulated in
+    float64)."""
+    n = ordered.shape[1]
+    idx = np.float32(pct / 100.0) * np.float32(n - 1)
+    w_high = idx - np.floor(idx)
+    w_low = np.float32(1.0) - w_high
+    low, high = ordered[:, int(np.floor(idx))], ordered[:, min(int(np.ceil(idx)), n - 1)]
+    return (low.double() * float(w_low) + (high * float(w_high)).double()).float()
+
+
 def _contrast_stretch(crops: torch.Tensor, lo_pct: float = 10.0, hi_pct: float = 90.0) -> torch.Tensor:
-    """Percentile contrast stretch per crop (N, H, W) -> full [0,255] range.
-    ``torch.quantile`` interpolates linearly, as ``jnp.percentile`` does."""
-    q = torch.tensor([lo_pct / 100.0, hi_pct / 100.0], device=crops.device, dtype=crops.dtype)
-    lo, hi = torch.quantile(crops.reshape(crops.shape[0], -1), q, dim=1)[:, :, None, None]
-    scale = 255.0 / torch.clamp(hi - lo, min=1.0)
+    """Percentile contrast stretch per crop (N, H, W) -> full [0,255] range,
+    with the JAX engine's percentiles bit for bit (``_percentile``)."""
+    ordered = torch.sort(crops.reshape(crops.shape[0], -1), dim=1).values
+    lo, hi = (_percentile(ordered, p)[:, None, None] for p in (lo_pct, hi_pct))
+    span = torch.clamp(hi - lo, min=1.0)
+    scale = torch.full_like(span, 255.0) / span  # one rounding: `255.0 / span` is 255 * (1 / span)
     return torch.clamp((crops - lo) * scale, 0.0, 255.0)
 
 

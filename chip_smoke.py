@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 ``g++``. It:
 
 1. prints the card's name and power limit;
-2. builds the CUDA kernels (nvcc) and the C++ labeler (g++) in parallel
-   from the sources in the checkout, and prints the build seconds;
+2. builds the CUDA kernels (nvcc), the C++ labeler and the C++ JPEG
+   decoder (g++) in parallel from the sources in the checkout, and prints
+   the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version on the
    card at nine shapes (the slice's (1, 1312, 1050) from the chain itself,
    random images at 70x90 (N=2), 33x41, 1x1, 2x3, 3x8, 7x5 (N=2),
@@ -19,21 +20,36 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    64 MB write between calls; it also times the contrast mean
    (``rounded_mean``) against the int64 sum it replaced;
 4. turns ``data/real/covers/book1.png`` into metadata JSON through the
-   port's extractor on the card (default bfloat16 engine), with every
-   kernel launch count set to 0 just before and read just after: each
-   kernel must have run; then profiles one warm photo with torch.profiler
-   and prints the top device ops, the device's idle share over the call
-   and the time inside the bfloat16 LSTM; times the photo's GroupNorm
-   calls in three forms (bfloat16 parameters, float32 input and
-   parameters, bfloat16 input with float32 parameters); and holds the
-   bfloat16 reading against the JAX package's, recorded in
-   ``tests/data/book1_jax_bf16.json``: the same box count, each box's
-   text and quad distance printed;
+   port's extractor on the card (default bfloat16 engine, ``auto_rotate``
+   left to resolve per image, which for this photo is the rotation route,
+   as in the JAX package; the chosen k and the four rotation scores are
+   printed, and k must be the JAX package's, recorded in
+   ``tests/data/book1_rotations_jax_bf16.json``), with every kernel launch
+   count set to 0 just before and read just after: each kernel must have
+   run; then profiles one warm photo with torch.profiler and prints the
+   top device ops, the device's idle share over the call and the LSTM
+   scan's host ms, device ms and kernel launches; replays the photo's LSTM calls through the scan and through
+   cuDNN's ``nn.LSTM`` (timed, not used) and compares the card's scan with
+   the CPU's on the same inputs; times the photo's GroupNorm calls in
+   three forms (bfloat16 parameters, float32 input and parameters,
+   bfloat16 input with float32 parameters); and holds the upright bfloat16
+   reading against the JAX package's, recorded in
+   ``tests/data/book1_jax_bf16.json``: the same box count, each box's text
+   and quad distance printed;
 5. reads the same photo in float32 (cuDNN TF32 off) with the kernels and
    with their plain versions: the preprocessed images and the box texts
    must be identical;
 6. holds that float32 reading against the JAX package's, recorded in
-   ``tests/data/book1_jax_f32.json``: the same texts, quads within 1 px.
+   ``tests/data/book1_jax_f32.json``: the same texts, quads within 1 px;
+7. a camera photo: the port's JPEG decoder must reproduce the SHA-256 of
+   Pillow's decoding of every repository JPEG
+   (``tests/data/jpeg_pillow_sha256.json``); then
+   ``data/real/photos/3/IMG_9687.jpg`` goes JPEG -> preprocessing -> PIL
+   BILINEAR downscale -> rotation route -> JSON through the extractor, in
+   float32 (TF32 off) held to the JAX package's reading
+   (``tests/data/IMG_9687_rotations_jax_f32.json``: the same k, box count
+   and texts, quads within 1 px), and in bfloat16 (the same k; text
+   differences printed).
 
 Any failed check exits non-zero. The line before the last is one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -42,6 +58,8 @@ object ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import copy
+import hashlib
 import json
 import os
 import re
@@ -55,13 +73,15 @@ import numpy as np
 import torch
 
 from bbocr_tpu_torch import kernels
-from bbocr_tpu_torch.extract import validate_metadata, validate_schema
+from bbocr_tpu_torch.extract import BookMetadataExtractor, validate_metadata, validate_schema
 from bbocr_tpu_torch.io import load_rgb
 from bbocr_tpu_torch.kernels import build as kernel_build
+from bbocr_tpu_torch.models import crnn as crnn_module
+from bbocr_tpu_torch.native import jpeg as native_jpeg
 from bbocr_tpu_torch.native import loader as native_loader
 from bbocr_tpu_torch.ops import rounded_mean
 from bbocr_tpu_torch.preprocess.chain import KERNEL_OPS, PLAIN_OPS, _preprocess
-from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
+from bbocr_tpu_torch.runtime import EngineConfig, OCREngine, orient
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BOOK1 = os.path.join(ROOT, "data", "real", "covers", "book1.png")
@@ -70,6 +90,13 @@ CKPT = os.path.join(ROOT, "checkpoints")
 # (scripts/torch_port_reference.py)
 REFERENCE = os.path.join(ROOT, "tests", "data", "book1_jax_f32.json")
 REFERENCE_BF16 = os.path.join(ROOT, "tests", "data", "book1_jax_bf16.json")
+# A sideways camera photo, the JAX package's float32 rotation-route reading of
+# it, and the digests of Pillow's decoding of every repository JPEG
+# (scripts/torch_port_reference.py --rotations / --jpeg-digests)
+CAMERA = os.path.join(ROOT, "data", "real", "photos", "3", "IMG_9687.jpg")
+CAMERA_REFERENCE = os.path.join(ROOT, "tests", "data", "IMG_9687_rotations_jax_f32.json")
+BOOK1_ROTATIONS = os.path.join(ROOT, "tests", "data", "book1_rotations_jax_bf16.json")
+JPEG_DIGESTS = os.path.join(ROOT, "tests", "data", "jpeg_pillow_sha256.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SOURCE = "bbocr_tpu_torch/csrc/preprocess.cu"
@@ -81,6 +108,7 @@ KERNEL_INFO = {
     "unsharp_u8": (f"{PALLAS}:143", 2 * 2 * 7 + 12, "sepconv_u8_kernel"),
 }
 TIMING_REPS = 20
+LSTM_MARK = "bbocr::lstm_scan"
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
@@ -122,12 +150,13 @@ def ptxas_report(build_log: str) -> list:
 
 def build_all() -> float:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = [pool.submit(kernel_build.build), pool.submit(native_loader.build)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        futures = [pool.submit(kernel_build.build), pool.submit(native_loader.build), pool.submit(native_jpeg.build)]
         for f in futures:
             f.result()
     kernel_build.load()
     native_loader.load()
+    native_jpeg.load()
     seconds = time.perf_counter() - t0
     for line in ptxas_report(kernel_build.build_log):
         print(f"  ptxas: {line}", flush=True)
@@ -270,16 +299,56 @@ def check_kernels(rgb: np.ndarray, dev) -> dict:
     return report
 
 
+class ReadRecorder:
+    """Records every ``readtext`` of an engine while in use, so that the
+    rotation route's per-rotation scores and choice can be printed: k is
+    the first rotation with the largest (``rotation_score``,
+    ``_wordlike_mass``), as ``read_with_rotations`` takes it."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.reads, self.shapes = [], []
+
+    def __enter__(self):
+        readtext = self.engine.readtext
+
+        def record(image):
+            self.shapes.append(tuple(image.shape[:2]))
+            self.reads.append(readtext(image))
+            return self.reads[-1]
+
+        self.engine.readtext = record
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine.readtext
+
+    def choice(self):
+        if len(self.reads) != 4:
+            fail(f"the rotation route read {len(self.reads)} images, not 4")
+        scores = [(orient.rotation_score(r), orient._wordlike_mass(r)) for r in self.reads]
+        k = max(range(4), key=lambda i: (scores[i], -i))
+        return k, scores, self.reads[k]
+
+
 def run_slice(dev):
     from bbocr_tpu_torch.cli.process_book import make_extractor
 
-    extractor = make_extractor(device=dev)
+    extractor = make_extractor(device=dev, auto_rotate=None)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    meta = extractor.extract_metadata_from_images([BOOK1], ocr_image_indices=[0])
+    with ReadRecorder(extractor.engine) as rec:
+        meta = extractor.extract_metadata_from_images([BOOK1], ocr_image_indices=[0])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+    k, scores, _ = rec.choice()
+    with open(BOOK1_ROTATIONS) as f:
+        ref = json.load(f)
+    print(f"rotation route: read shapes {rec.shapes}; (rotation_score, wordlike_mass) per k {scores}; chosen k = {k}; "
+          f"the JAX package's bfloat16 route: k = {ref['k']}, scores {ref['scores']}", flush=True)
+    if k != ref["k"]:
+        fail(f"the rotation route chose k = {k} for book1.png, the JAX package k = {ref['k']}")
     return meta, launches, seconds, extractor
 
 
@@ -287,14 +356,24 @@ def profile_warm_photo(extractor) -> None:
     """torch.profiler over one warm bfloat16 photo: the top device ops, the
     device's idle share over the call, and the time inside the LSTM."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scan = crnn_module.bidirectional_scan
+
+    def marked_scan(*args):
+        with record_function(LSTM_MARK):
+            return scan(*args)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        extractor.extract_metadata_from_images([BOOK1], ocr_image_indices=[0])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    crnn_module.bidirectional_scan = marked_scan
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            extractor.extract_metadata_from_images([BOOK1], ocr_image_indices=[0])
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        crnn_module.bidirectional_scan = scan
     events = prof.events()
     busy = sorted((e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA)
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
@@ -313,15 +392,86 @@ def profile_warm_photo(extractor) -> None:
     print(f"warm photo under the profiler: {wall_us / 1e3:.3f} ms wall; traced span {length / 1e3:.3f} ms; "
           f"device busy {union / 1e3:.3f} ms (kernel time {device_total / 1e3:.3f} ms); "
           f"device idle share {1 - union / length:.4f}", flush=True)
-    rows = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+    # the scan's mark also shows as a device-side range spanning its kernels: not an op
+    rows = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0 and e.key != LSTM_MARK),
                   key=lambda e: e.self_device_time_total, reverse=True)
     print("top device ops (self device ms, calls, name):", flush=True)
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  {e.count:5d}  {e.key[:110]}", flush=True)
     for e in prof.key_averages():
-        if e.key in ("aten::lstm", "aten::_cudnn_rnn", "aten::_cudnn_rnn_flatten_weight", "aten::linear", "aten::conv2d"):
+        if e.key in (LSTM_MARK, "aten::linear", "aten::conv2d") and e.cpu_time_total > 0:
             print(f"op {e.key}: {e.count} calls, {e.cpu_time_total / 1e3:.3f} ms host total, "
                   f"{e.device_time_total / 1e3:.3f} ms device total", flush=True)
+    scans = [(e.time_range.start, e.time_range.end) for e in cpu if e.name == LSTM_MARK]
+    launches = sum(1 for e in cpu if e.name.startswith("cudaLaunchKernel")
+                   and any(a <= e.time_range.start <= b for a, b in scans))
+    print(f"LSTM scan in the warm photo: {len(scans)} calls, "
+          f"{launches if launches else 'not measured'} kernel launches", flush=True)
+
+
+def time_lstm(engine: OCREngine, image: np.ndarray) -> None:
+    """The LSTM calls of one bfloat16 read, replayed: the port's scan against
+    cuDNN's ``nn.LSTM`` with the same weights (per photo: CUDA-event ms,
+    profiler device ms, kernels launched), and the card's scan against the
+    CPU's on the same inputs (the CPU's equals the JAX package's bit for
+    bit, ``tests/test_torch_lstm.py``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = []
+    layers = [engine.crnn.rnn0, engine.crnn.rnn1]
+    hooks = [m.register_forward_pre_hook(lambda m, args: calls.append((m, args[0].detach().clone()))) for m in layers]
+    try:
+        engine.readtext(image)
+    finally:
+        for h in hooks:
+            h.remove()
+    cudnn = {}
+    for m in layers:
+        lstm = torch.nn.LSTM(m.fwd.w_ih.shape[0], m.fwd.w_hh.shape[0], batch_first=True, bidirectional=True)
+        with torch.no_grad():
+            for sfx, d in (("l0", m.fwd), ("l0_reverse", m.bwd)):
+                getattr(lstm, f"weight_ih_{sfx}").copy_(d.w_ih.T)
+                getattr(lstm, f"weight_hh_{sfx}").copy_(d.w_hh.T)
+                getattr(lstm, f"bias_ih_{sfx}").copy_(d.b_ih)
+                getattr(lstm, f"bias_hh_{sfx}").zero_()
+        cudnn[m] = lstm.to(device=engine.device, dtype=m.fwd.w_ih.dtype)
+        cudnn[m].flatten_parameters()
+    forms = {
+        "port scan": lambda m, x: crnn_module.bidirectional_scan(x, m.fwd, m.bwd),
+        "cuDNN nn.LSTM (library, not used)": lambda m, x: cudnn[m](x)[0],
+    }
+    shapes = [tuple(x.shape) for _, x in calls]
+    print(f"LSTM in one bfloat16 read: {len(calls)} BiLSTM calls on inputs {shapes}", flush=True)
+    for name, form in forms.items():
+        def photo(form=form):
+            with torch.no_grad():
+                for m, x in calls:
+                    form(m, x)
+        photo()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            photo()
+            torch.cuda.synchronize()
+        kernels_run = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        device = sum(e.time_range.end - e.time_range.start for e in kernels_run) / 1e3
+        t0 = time.perf_counter()
+        photo()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        print(f"  {name}: {median_ms(photo, reps=5):.4f} ms per photo (CUDA events), {host:.4f} ms host wall "
+              f"(one call, synchronised), {device:.4f} ms device time, {len(kernels_run)} kernels", flush=True)
+    worst, share = 0.0, 0.0
+    with torch.no_grad():
+        for m, x in calls:
+            card = crnn_module.bidirectional_scan(x, m.fwd, m.bwd).float().cpu()
+            on_cpu = copy.deepcopy(m).cpu()
+            host_out = crnn_module.bidirectional_scan(x.cpu(), on_cpu.fwd, on_cpu.bwd).float()
+            d = (card - host_out).abs()
+            worst = max(worst, float(d.max()))
+            share = max(share, float((d > 0).float().mean()))
+    print(f"  card scan against the CPU scan (bfloat16, same inputs): max abs diff {worst:.6g}, "
+          f"at most {share:.4%} of a call's values differ", flush=True)
 
 
 def time_groupnorm(engine: OCREngine, image: np.ndarray) -> None:
@@ -380,6 +530,69 @@ def check_bf16_reading(res) -> None:
         equal, worst = equal + (text == rtext), max(worst, err)
         print(f"  box {i}: {text!r} (JAX {rtext!r}), quad within {err:.4f} px", flush=True)
     print(f"bfloat16 reading: {equal} of {len(res)} texts equal to the JAX reference, quads within {worst:.4f} px", flush=True)
+    if len(res) > 3:
+        print(f"bfloat16 box 3 reads {res[3][1]!r} on the card; the JAX package reads {ref['texts'][3]!r}", flush=True)
+
+
+def check_jpeg_digests() -> None:
+    """The port's decoder on every repository JPEG against the SHA-256 of
+    Pillow's decoding, recorded where Pillow is installed."""
+    with open(JPEG_DIGESTS) as f:
+        digests = json.load(f)
+    seconds = 0.0
+    for rel, want in digests.items():
+        t0 = time.perf_counter()
+        rgb = load_rgb(os.path.join(ROOT, rel))
+        seconds += time.perf_counter() - t0
+        if list(rgb.shape) != want["shape"] or hashlib.sha256(rgb.tobytes()).hexdigest() != want["sha256"]:
+            fail(f"{rel}: the port's JPEG decoding differs from Pillow's recorded digest")
+    print(f"JPEG decoder: {len(digests)} repository JPEGs decode to Pillow's recorded SHA-256 digests; "
+          f"{seconds:.3f} s in all (host, one thread)", flush=True)
+
+
+def read_camera(engine: OCREngine, dev, label: str):
+    """The camera photo through the extractor (rotation route); returns
+    (chosen k, the chosen rotation's results)."""
+    extractor = BookMetadataExtractor(
+        llm_backend="heuristic", auto_rotate=None, reread_low_conf=False, isbn_reread=False,
+        fast_single=None, warm_model=False, device=dev, engine=engine,
+    )
+    t0 = time.perf_counter()
+    with ReadRecorder(engine) as rec:
+        meta = extractor.extract_metadata_from_images([CAMERA], ocr_image_indices=[0])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    validate_schema(meta)
+    k, scores, res = rec.choice()
+    print(f"camera photo, {label}: {seconds:.3f} s; read shapes {rec.shapes}; scores per k {scores}; chosen k = {k}; "
+          f"{len(res)} boxes; JSON {json.dumps({f: meta[f] for f in ('title', 'isbn_10', 'isbn_13')})}", flush=True)
+    return k, res, rec.shapes[0]
+
+
+def check_camera(dev, engine_f32: OCREngine, engine_bf16: OCREngine) -> None:
+    with open(CAMERA_REFERENCE) as f:
+        ref = json.load(f)
+    k, res, shape = read_camera(engine_f32, dev, "float32")
+    if list(shape) != ref["preprocessed_shape"]:
+        fail(f"camera photo downscaled to {shape}, the JAX extractor to {ref['preprocessed_shape']}")
+    if k != ref["k"]:
+        fail(f"camera photo, float32: rotation k = {k}, the JAX package chose {ref['k']}")
+    texts = [t for _, t, _ in res]
+    if texts != ref["texts"]:
+        fail(f"camera photo, float32: texts {texts} differ from the JAX reference {ref['texts']}")
+    quad_err = max(float(np.abs(np.asarray(q) - np.asarray(rq)).max()) for (q, _, _), rq in zip(res, ref["quads"]))
+    print(f"camera photo, float32: k = {k} and {len(texts)} boxes as in the JAX reference, texts equal, "
+          f"quads within {quad_err:.4f} px", flush=True)
+    if quad_err > 1.0:
+        fail(f"camera photo, float32: quads differ from the JAX reference by {quad_err} px (limit 1)")
+    k, res, _ = read_camera(engine_bf16, dev, "bfloat16")
+    if k != ref["k"]:
+        fail(f"camera photo, bfloat16: rotation k = {k}, the JAX package's float32 reading chose {ref['k']}")
+    texts = [t for _, t, _ in res]
+    ref_texts = ref["texts"]
+    print(f"camera photo, bfloat16: k = {k}; {len(texts)} boxes against {len(ref_texts)} in the float32 JAX "
+          f"reference; texts only here {sorted(set(texts) - set(ref_texts))}, only there "
+          f"{sorted(set(ref_texts) - set(texts))}", flush=True)
 
 
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
@@ -427,6 +640,7 @@ def main() -> int:
     print(f"slice seconds, second run: {time.perf_counter() - t0:.3f}", flush=True)
     profile_warm_photo(extractor)
     image = _preprocess(rgb, 1.5, dev, KERNEL_OPS).cpu().numpy()
+    time_lstm(extractor.engine, image)
     time_groupnorm(extractor.engine, image)
     check_bf16_reading(extractor.engine.readtext(image))
 
@@ -458,6 +672,10 @@ def main() -> int:
     print(f"{len(texts_k)} boxes, texts equal to the JAX reference, quads within {quad_err:.4f} px", flush=True)
     if quad_err > 1.0:
         fail(f"quads differ from the JAX reference by {quad_err} px (limit 1)")
+
+    log("phase 7: a camera photo, JPEG -> rotation route -> JSON")
+    check_jpeg_digests()
+    check_camera(dev, engine, extractor.engine)
 
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -2,8 +2,9 @@
 missing, as on the machine with the card.
 
 A subprocess blocks those imports with a ``sys.meta_path`` finder, runs
-the port's extractor on a small PNG on the CPU, and imports
-``chip_smoke`` without running its main.
+the port's extractor on a small PNG on the CPU, decodes a JPEG of
+``books/`` with the port's decoder, reads it at the four rotations, and
+imports ``chip_smoke`` without running its main.
 """
 
 import json
@@ -54,10 +55,16 @@ SCRIPT = textwrap.dedent(
         device="cpu",
     )
     meta = extractor.extract_metadata_from_images([sys.argv[1]], ocr_image_indices=[0])
+
+    from bbocr_tpu_torch.io import load_rgb
+    from bbocr_tpu_torch.runtime.orient import read_with_rotations
+
+    photo = load_rgb("books/1/IMG_0000.jpg")
+    results, k = read_with_rotations(extractor._engine, photo[::4, ::4])
     import chip_smoke  # noqa: F401  (imported, main not run)
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
-    print(json.dumps({"meta": meta, "loaded": loaded}))
+    print(json.dumps({"meta": meta, "loaded": loaded, "photo": list(photo.shape), "k": k, "boxes": len(results)}))
     """
 )
 
@@ -78,6 +85,7 @@ def test_port_runs_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
     assert out["loaded"] == []
     assert out["meta"]["_processing_info"]["structurer"] == "heuristic"
     assert "title" in out["meta"]
+    assert out["photo"] == [800, 600, 3] and out["k"] in (0, 1, 2, 3)
 
 
 def _run_smoke(cwd, script):

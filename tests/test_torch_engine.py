@@ -128,6 +128,25 @@ def test_recognize_with_retry_matches_jax(engines, cover_u8):
     np.testing.assert_allclose(got[2], ref[2], rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("shape", [(8, 32, 64), (8, 32, 512), (32, 32, 256), (3, 32, 384)])
+def test_recognizer_input_is_the_jax_engines(shape):
+    """What the CRNN receives equals what the JAX engine's compiled program
+    gives it, bit for bit: the contrast stretch (its percentiles' index and
+    fused interpolation) and the [-1, 1] input in bfloat16 (a fused
+    multiply-add by the reciprocal of 127.5)."""
+    import jax
+
+    crops = np.random.default_rng(shape[2]).normal(128, 60, shape).clip(0, 255).astype(np.float32)
+    crops[0] = np.round(crops[0])  # integer levels, as a plain crop of a u8 canvas holds
+    ref = np.asarray(jax.jit(lambda c: jax_contrast_stretch(c))(jnp.asarray(crops)))
+    got = port_engine._contrast_stretch(torch.from_numpy(crops))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    to_input = jax.jit(lambda c: (c / 127.5 - 1.0).astype(jnp.bfloat16).astype(jnp.float32))
+    for c, t in ((crops, torch.from_numpy(crops)), (ref, got)):
+        ours = port_engine._to_unit_range(t).to(torch.bfloat16).float()
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(to_input(jnp.asarray(c))))
+
+
 def test_readtext_matches_jax_engine(engines, cover_u8):
     """Same box count, quads within 1 px, equal texts (float32 both)."""
     jax_engine, port = engines
@@ -183,10 +202,9 @@ def test_extractor_makes_valid_json(engines, tmp_path):
         {"crop_for_ocr": True},
         {"isbn_reread": True},
         {"reread_low_conf": True},
-        {"auto_rotate": True},
         {"fast_single": True},
     ],
-    ids=["llm", "autocrop", "isbn_reread", "reread", "rotate", "fast"],
+    ids=["llm", "autocrop", "isbn_reread", "reread", "fast"],
 )
 def test_extractor_refuses_unported_knobs(kwargs):
     base = dict(llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False, fast_single=False)
@@ -195,12 +213,49 @@ def test_extractor_refuses_unported_knobs(kwargs):
         BookMetadataExtractor(**base)
 
 
-def test_extractor_refuses_auto_rotate_resolving_true():
+class _ShapeEngine:
+    """Fake engine that records the shape of every image it reads."""
+
+    def __init__(self):
+        self.shapes = []
+
+    def readtext(self, image):
+        self.shapes.append(image.shape)
+        return []
+
+
+@pytest.mark.parametrize(
+    "auto_rotate,shape,reads",
+    [
+        (None, (1300, 900), [(1300, 900), (900, 1300), (1300, 900), (900, 1300)]),  # camera-shaped: rotations
+        (True, (800, 600), [(800, 600), (600, 800), (800, 600), (600, 800)]),  # small, but asked for
+        (False, (1300, 900), [(1300, 900)]),
+        (None, (2000, 1000), [(1600, 800), (800, 1600), (1600, 800), (800, 1600)]),  # downscaled first
+    ],
+    ids=["auto_camera", "asked_small", "off", "auto_downscaled"],
+)
+def test_extractor_auto_rotate_takes_the_rotation_route(auto_rotate, shape, reads):
+    """``auto_rotate=None`` resolves as in the JAX extractor (rotations for a
+    long side of 1200 px or more) and the rotation route reads the image at
+    k = 0, 1, 2, 3; the fast path stays off when rotating."""
+    engine = _ShapeEngine()
     extractor = BookMetadataExtractor(
-        llm_backend="heuristic", reread_low_conf=False, isbn_reread=False, fast_single=False, device="cpu",
+        llm_backend="heuristic", auto_rotate=auto_rotate, reread_low_conf=False, isbn_reread=False,
+        fast_single=None if auto_rotate is not False else False, device="cpu", engine=engine,
     )
-    with pytest.raises(NotImplementedError, match="rotations"):
-        extractor._ocr_text(np.zeros((1300, 900), np.float32), 0)
+    extractor._ocr_text(np.zeros(shape, np.float32), 0)
+    assert engine.shapes == reads
+
+
+def test_extractor_refuses_fast_path_resolving_true():
+    """An upright small photo without rotations resolves to the fast path,
+    which is not ported."""
+    extractor = BookMetadataExtractor(
+        llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False,
+        device="cpu", engine=_ShapeEngine(),
+    )
+    with pytest.raises(NotImplementedError, match="fast path"):
+        extractor._ocr_text(np.zeros((800, 600), np.float32), 0)
 
 
 @pytest.mark.parametrize(

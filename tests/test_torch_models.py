@@ -47,7 +47,9 @@ def test_crnn_checkpoint_loads_with_every_key(crnn_params):
     result = CRNN(97).load_state_dict(crnn_state_dict(crnn_params), strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     sd = crnn_state_dict(crnn_params)
-    assert torch.count_nonzero(sd["rnn0.lstm.bias_hh_l0"]) == 0
+    lstm = crnn_params["params"]["rnn0"]["bwd"]
+    for leaf in ("w_ih", "w_hh", "b_ih"):  # LSTMScan keeps the JAX layout
+        np.testing.assert_array_equal(sd[f"rnn0.bwd.{leaf}"].numpy(), np.asarray(lstm[leaf], np.float32))
 
 
 def test_fold_gray_stem_matches_jax(craft_params):
