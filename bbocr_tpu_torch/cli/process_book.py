@@ -5,9 +5,10 @@ save ``book_<id>_enhanced.json`` and print a summary.
     python -m bbocr_tpu_torch.cli.process_book 1 --ocr-indices 0 1
     python -m bbocr_tpu_torch.cli.process_book --book-dir path/to/book --device cpu
 
-Only the knobs of the ported path are offered: the rotation search
-(``--auto-rotate``, off by default as in the JAX CLI), but no re-reads, no
-fast path, no LLM.
+The extractor runs with the JAX CLI's defaults: the rotation search only
+with ``--auto-rotate`` (off by default, as in the JAX CLI), the fast path
+for upright photos under 1200 px, and the low-confidence and ISBN re-reads.
+Only the heuristic backend is ported.
 """
 
 from __future__ import annotations
@@ -34,17 +35,14 @@ def find_books_dir(explicit: Optional[str] = None) -> Optional[str]:
 def make_extractor(
     device="cuda", use_preprocessing: bool = True, edge_crop_percent: float = 0.0, auto_rotate=False,
 ) -> BookMetadataExtractor:
-    """The ported configuration of ``BookMetadataExtractor``. ``auto_rotate``:
-    True, False, or None to decide per image as the extractor does."""
+    """``BookMetadataExtractor`` on the heuristic backend with the JAX
+    CLI's defaults. ``auto_rotate``: True, False, or None to decide per
+    image as the extractor does."""
     return BookMetadataExtractor(
         llm_backend="heuristic",
         use_preprocessing=use_preprocessing,
-        crop_for_ocr=False,
         edge_crop_percent=edge_crop_percent,
         auto_rotate=auto_rotate,
-        reread_low_conf=False,
-        isbn_reread=False,
-        fast_single=False,
         warm_model=False,
         device=device,
     )

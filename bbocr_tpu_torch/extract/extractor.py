@@ -6,17 +6,19 @@ read by the OCR engine, grouped into lines, and structured by the
 heuristics into metadata that passes the schema. No LLM client and no HTTP
 session exist here.
 
-``auto_rotate`` (``None``: per image, as in the JAX package) reads the
-photo at the four right-angle rotations (``runtime/orient.py``). Photos
-over the OCR size limit are downscaled with Pillow's BILINEAR resample,
-reproduced in numpy (``ops.pil_bilinear_resize_u8``).
+The OCR route is the JAX extractor's, with the same defaults: camera
+photos (long side of 1200 px or more, ``auto_rotate=None``) are read at the
+four right-angle rotations (``runtime/orient.py``), smaller upright ones
+through the single-dispatch fast path (``fast_single=None``); the chosen
+reading then gets the low-confidence full-resolution re-read
+(``reread_low_conf``) and the digit-biased ISBN re-read (``isbn_reread``).
+Photos over the OCR size limit are downscaled with Pillow's BILINEAR
+resample, reproduced in numpy (``ops.pil_bilinear_resize_u8``).
 
 Knobs whose modules are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md item: LLM backends, auto-crop, re-reads, the
-single-dispatch fast path, and traces. ``fast_single`` left at ``None``
-resolves per image as in the JAX package, and raises when it resolves to
-True. Errors propagate: unlike the JAX extractor, a failed OCR call is not
-turned into empty text.
+naming their ROADMAP.md item: LLM backends, auto-crop and traces. Errors
+propagate: unlike the JAX extractor, a failed OCR call or re-read is not
+turned into empty text or a skipped re-read.
 """
 
 from __future__ import annotations
@@ -67,15 +69,13 @@ class BookMetadataExtractor:
             raise _not_ported(f"llm_backend={self.llm_backend!r} (LLM backends)")
         if crop_for_ocr:
             raise _not_ported("crop_for_ocr=True (auto-crop)")
-        if isbn_reread or reread_low_conf:
-            raise _not_ported("isbn_reread / reread_low_conf (re-reads)")
-        if fast_single:
-            raise _not_ported("fast_single=True (single-dispatch fast path)")
         self.model = model
         self.use_preprocessing = use_preprocessing
         self.edge_crop_percent = float(max(0.0, min(45.0, edge_crop_percent)))
         self.max_ocr_chars_per_image = int(max(1, max_ocr_chars_per_image))
+        self.isbn_reread = bool(isbn_reread)
         self.auto_rotate = auto_rotate
+        self.reread_low_conf = bool(reread_low_conf)
         self.fast_single = fast_single
         self.device = device
         self._engine = engine
@@ -126,20 +126,24 @@ class BookMetadataExtractor:
         max_dim = 1600 if (image_index is None or image_index == 0) else 2400
         h, w = image.shape[:2]
         orig_long_side = max(h, w)
-        # camera photos arrive sideways
-        rotate = self.auto_rotate if self.auto_rotate is not None else orig_long_side >= 1200
-        use_fast = self.fast_single if self.fast_single is not None else (not rotate and orig_long_side < 1200)
-        if use_fast:
-            raise _not_ported("fast_single resolving to True for an upright small photo (fast path)")
         if orig_long_side > max_dim:
             scale = max_dim / orig_long_side
             u8 = np.clip(image, 0, 255).astype(np.uint8)
             image = pil_bilinear_resize_u8(u8, int(w * scale), int(h * scale)).astype(np.float32)
 
+        eng = self.engine
+        reread_ths = 0.5 if (self.reread_low_conf and hasattr(eng, "reread_low_conf")) else 0.0
+        # camera photos arrive sideways
+        rotate = self.auto_rotate if self.auto_rotate is not None else orig_long_side >= 1200
+        use_fast = (
+            self.fast_single if self.fast_single is not None else (not rotate and orig_long_side < 1200)
+        ) and hasattr(eng, "readtext_fast")
         if rotate:
-            res, _ = read_with_rotations(self.engine, image)
+            res, _ = read_with_rotations(eng, image, reread_conf_ths=reread_ths)
         else:
-            res = self.engine.readtext(image)
+            res = eng.readtext_fast(image) if use_fast else eng.readtext(image)
+            if reread_ths > 0 and res:
+                res = eng.reread_low_conf(image, res, conf_ths=reread_ths)
         from bbocr_tpu_torch.decode import group_lines
 
         infos = []
@@ -160,6 +164,15 @@ class BookMetadataExtractor:
         if strong:
             grouped = group_lines([r[0] for r in strong])
             lines = [" ".join(strong[i][1] for i in line) for line in grouped]
+        # A checksum-valid ISBN from the digit-biased re-read is its own
+        # line. As in the JAX extractor, the re-read takes the unrotated
+        # image with the chosen reading's quads.
+        if self.isbn_reread and res and hasattr(eng, "reread_isbn"):
+            isbn = eng.reread_isbn(image, res)
+            if isbn:
+                lines = [ln for ln in lines if "isbn" not in ln.lower()]
+                lines.append(f"ISBN {isbn}")
+                infos.append((f"ISBN {isbn}", 1.0, 0.2))
         return " ".join(lines), lines, infos, len(res)
 
     # ------------------------------------------------------------------

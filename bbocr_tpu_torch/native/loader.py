@@ -1,7 +1,8 @@
 """Build the C++ connected-components labeler with g++ and bind it.
 
 ``build_library`` builds any of the package's C++ sources the same way
-(``native/jpeg.py`` builds the JPEG decoder with it).
+(``native/jpeg.py`` builds the JPEG decoder with it, ``native/warp.py`` the
+host crop warp).
 
 Counterpart of ``bbocr_tpu/native/loader.py``. The library is built at
 first use into ``bbocr_tpu_torch/native/build/``, named by a hash of the
@@ -34,18 +35,19 @@ _lock = threading.Lock()
 _lib = None
 
 
-def build_library(source: str, stem: str) -> str:
+def build_library(source: str, stem: str, extra_flags: tuple = ()) -> str:
     """g++ ``source`` into ``build/<stem>_<hash>.so`` unless it is there;
     raises if g++ fails."""
+    flags = _FLAGS + tuple(extra_flags)
     with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
     path = os.path.join(BUILD_DIR, f"{stem}_{digest}.so")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        ["g++", *_FLAGS, "-o", tmp, source], capture_output=True, text=True, timeout=300
+        ["g++", *flags, "-o", tmp, source], capture_output=True, text=True, timeout=300
     )
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")

@@ -7,21 +7,28 @@ Counterpart of ``bbocr_tpu/runtime/engine.py::OCREngine`` on one device:
 - detect: CRAFT with the folded gray stem, thresholds applied on the
   device, two uint8 planes downloaded per canvas;
 - boxes: the C++ labeler on the host, then the multi-line split;
-- rectify: one bilinear gather warp per width bucket, on the device, from
-  the letterboxed canvas;
-- recognize: CRNN + greedy CTC on the device, with the contrast-stretch
-  retry for low-confidence crops;
+- rectify: by default on the host, each crop warped from the original
+  gray photo (``runtime/wire.py``, the C++ warp) and uploaded as uint8;
+  with ``host_rectify=False``, one bilinear gather warp per width bucket on
+  the device from the letterboxed canvas;
+- recognize: CRNN + greedy (or prefix beam) CTC on the device, with the
+  contrast-stretch retry for low-confidence crops;
 - collect in reading order, back in image coordinates.
 
-Options of the JAX engine whose modules are not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+Besides ``readtext``: the single-dispatch fast path (``readtext_fast``,
+``runtime/fastpath.py``) and the full-resolution re-reads
+(``lines_logits``, ``reread_low_conf`` with the device beam,
+``reread_isbn`` with the digit-biased host beam). Options of the JAX
+engine whose modules are not ported yet raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +40,7 @@ from bbocr_tpu_torch.decode import (
     sort_reading_order,
     split_multiline_quads,
 )
+from bbocr_tpu_torch.decode.beam_device import ctc_beam_decode_device
 from bbocr_tpu_torch.models import (
     CRAFT,
     CRNN,
@@ -44,9 +52,12 @@ from bbocr_tpu_torch.models import (
     crnn_state_dict,
     fold_gray_stem,
 )
+from bbocr_tpu_torch.models.crnn import INPUT_HEIGHT
 from bbocr_tpu_torch.runtime import bucketing
 from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
+from bbocr_tpu_torch.runtime.fastpath import fast_readtext_program
 from bbocr_tpu_torch.runtime.rectify import quad_to_rect_homography, warp_crops
+from bbocr_tpu_torch.runtime.wire import host_warp_crop
 from bbocr_tpu_torch.utils.checkpoint import load_params
 from bbocr_tpu_torch.utils.profiling import StageTimer
 
@@ -67,24 +78,32 @@ class EngineConfig:
     min_confidence: float = 0.0
     # Crops below this confidence are re-read contrast-stretched.
     contrast_ths: float = 0.1
+    # Fast path (readtext_fast): max component boxes per canvas and its one
+    # recognition width bucket.
+    fast_max_boxes: int = 24
+    fast_bucket_w: int = 256
     # torch.bfloat16 or torch.float32 for the CRAFT and CRNN forwards.
     compute_dtype: torch.dtype = torch.bfloat16
     # Requests of fewer images than this merge all width buckets into the
     # widest one needed.
     merge_buckets_below: int = 2
-    # Options of the JAX engine not ported yet: only these values run.
+    # CTC decoder of the recognize program: "greedy", or "beam" (the device
+    # prefix beam, decode/beam_device.py; confidence exp(prefix log-prob)).
+    # Read from the environment when the config is constructed.
+    decoder: str = field(default_factory=lambda: os.environ.get("BB_OCR_DECODER", "greedy"))
+    # Warp recognition crops on the host from the original photo (True, as
+    # in the JAX engine), or on the device from the letterboxed canvas.
+    host_rectify: bool = field(
+        default_factory=lambda: os.environ.get("BB_OCR_HOST_RECTIFY", "1").lower() not in ("0", "", "false")
+    )
+    # Not ported yet: only 8-bit canvases run.
     wire_bits: int = 8
-    host_rectify: bool = False
 
 
 def _check_ported(config: EngineConfig) -> None:
-    unported = {
-        "host_rectify=True (host crop rectification, runtime/wire.py)": config.host_rectify,
-        "wire_bits<8 (wire packing, runtime/wire.py)": config.wire_bits != 8,
-    }
-    for what, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet: see ROADMAP.md Queue 1")
+    if config.wire_bits != 8:
+        raise NotImplementedError(
+            "wire_bits<8 (wire packing, runtime/wire.py) is not ported yet: see ROADMAP.md Queue 1")
 
 
 class OCREngine:
@@ -151,9 +170,17 @@ class OCREngine:
         return mask.to(torch.uint8), region_q
 
     @torch.no_grad()
-    def _decode(self, crops: torch.Tensor, lengths: torch.Tensor):
+    def recognizer_logits(self, crops: torch.Tensor) -> torch.Tensor:
+        """(N, 32, W) crops in [0, 255] -> (N, T, C) CRNN logits."""
         x = _to_unit_range(crops)[:, None]
-        logits = self.crnn(x.to(self.config.compute_dtype))
+        return self.crnn(x.to(self.config.compute_dtype))
+
+    @torch.no_grad()
+    def _decode(self, crops: torch.Tensor, lengths: torch.Tensor):
+        logits = self.recognizer_logits(crops)
+        if self.config.decoder == "beam":
+            ids, lens, score = ctc_beam_decode_device(logits, lengths)
+            return ids, lens, torch.exp(score)
         return ctc_greedy_decode(logits, lengths)
 
     @torch.no_grad()
@@ -239,6 +266,8 @@ class OCREngine:
         return {
             "n_img": len(images), "scales": scales, "canvas_batches": canvas_batches,
             "canvas_pos": canvas_pos, "pending": pending,
+            # host rectification samples crops from the original pixels
+            "grays": grays if cfg.host_rectify else None,
         }
 
     def _stage_boxes_recognize(self, ctx: Dict[str, Any]) -> None:
@@ -273,6 +302,18 @@ class OCREngine:
         dispatched = []
         for bucket_w, entries in buckets.items():
             cap = bucketing.pad_count(len(entries), cfg.batch_capacities)
+            if cfg.host_rectify:
+                # each crop warped from the original gray at native detail,
+                # uploaded as uint8 and widened on the device
+                crop_buf = np.zeros((cap, INPUT_HEIGHT, bucket_w), np.uint8)
+                with self.timers.stage("rectify"):
+                    for k, (i, _, quad, true_w) in enumerate(entries):
+                        oq = np.asarray(quad, np.float64) / max(ctx["scales"][i], 1e-9)
+                        crop_buf[k] = host_warp_crop(
+                            ctx["grays"][i], oq, true_w, INPUT_HEIGHT, bucket_w, quad_to_rect_homography)
+                    all_crops = torch.from_numpy(crop_buf).to(self.device).to(torch.float32)
+                dispatched.append(self._recognize_dispatch(entries, list(range(len(entries))), all_crops, cap))
+                continue
             by_canvas: Dict[Tuple[CanvasSpec, int], List[int]] = {}
             for e_idx, (i, _, _, _) in enumerate(entries):
                 by_canvas.setdefault(ctx["canvas_pos"][i][0], []).append(e_idx)
@@ -303,6 +344,7 @@ class OCREngine:
             dispatched.append(self._recognize_dispatch(entries, order, all_crops, cap))
         ctx["dispatched"] = dispatched
         ctx["canvas_batches"] = None
+        ctx["grays"] = None
 
     def _recognize_dispatch(self, entries, order, all_crops: torch.Tensor, cap: int):
         """Pad a bucket's crops and lengths to capacity and recognize."""
@@ -342,6 +384,147 @@ class OCREngine:
                 out.append((quads[j] / max(ctx["scales"][i], 1e-9), text, c))
             results.append(out)
         return results
+
+    # ------------------------------------------------------------------
+    # Single-dispatch fast path
+    # ------------------------------------------------------------------
+
+    def readtext_fast(self, image: np.ndarray) -> List[Tuple[np.ndarray, str, float]]:
+        """One device program per photo: detect -> device CC labeling ->
+        top-K axis-aligned boxes -> warp -> recognize -> greedy decode, with
+        one canvas upload and one small download. Output as :meth:`readtext`;
+        boxes are axis-aligned."""
+        cfg = self.config
+        arr = _to_gray_u8(image)
+        canvas = bucketing.pick_canvas(arr.shape[0], arr.shape[1], cfg.canvases)
+        scale, oh, ow = bucketing.letterbox_params(arr.shape[0], arr.shape[1], canvas)
+        batch = np.zeros((1, canvas.height, canvas.width), np.uint8)
+        batch[0, :oh, :ow] = _host_resize(arr, oh, ow)
+        with self._lock, self.timers.stage("fast"):
+            gray = torch.from_numpy(batch).to(self.device).to(torch.float32)
+            out = fast_readtext_program(self, gray, cfg.fast_max_boxes, cfg.fast_bucket_w)
+            boxes, ids, lens, conf, valid = (a.cpu().numpy() for a in out)
+
+        quads, entries = [], []
+        for i in range(len(valid)):
+            if not valid[i]:
+                continue
+            text = self.charset.decode_ids(ids[i][: lens[i]])
+            if not text or conf[i] < cfg.min_confidence:
+                continue
+            x0, y0, x1, y1 = boxes[i]
+            quad = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32) / max(scale, 1e-9)
+            quads.append(quad)
+            entries.append((quad, text, float(conf[i])))
+        return [entries[j] for j in sort_reading_order(quads)]
+
+    # ------------------------------------------------------------------
+    # Full-resolution re-reads
+    # ------------------------------------------------------------------
+
+    def lines_logits(self, image: np.ndarray, quads, bucket_w: int = 384):
+        """Recognition logits for quads re-sampled from the full-resolution
+        image: a host crop of the region around each quad on a 128x1024
+        canvas, all warped and recognized in one batch on the device.
+        Returns (logits (N, T, C) float32, frames (N,) valid frame counts).
+        No contrast retry, as in the JAX engine's program."""
+        roi_h, roi_w = 128, 1024
+        arr = np.asarray(image, np.float32)
+        if arr.ndim == 3:
+            arr = 0.299 * arr[..., 0] + 0.587 * arr[..., 1] + 0.114 * arr[..., 2]
+        n = len(quads)
+        n_pad = bucketing.pad_count(n, (1, 2, 4, 8))
+        canvas = np.zeros((n_pad, roi_h, roi_w), np.float32)
+        homos = np.zeros((n_pad, 3, 3), np.float32)
+        true_ws = np.ones(n_pad, np.int64)
+        for k, quad in enumerate(quads):
+            q = np.asarray(quad, np.float64)
+            margin = 8.0
+            x0 = max(0, int(np.floor(q[:, 0].min() - margin)))
+            y0 = max(0, int(np.floor(q[:, 1].min() - margin)))
+            x1 = min(arr.shape[1], int(np.ceil(q[:, 0].max() + margin)))
+            y1 = min(arr.shape[0], int(np.ceil(q[:, 1].max() + margin)))
+            roi = arr[y0:y1, x0:x1]
+            if roi.size == 0:
+                roi = arr
+                x0 = y0 = 0
+            rh, rw = roi.shape
+            scale = min(1.0, roi_h / rh, roi_w / rw)
+            if scale < 1.0:
+                roi = _host_resize(roi, max(1, int(rh * scale)), max(1, int(rw * scale)))
+            canvas[k, : roi.shape[0], : roi.shape[1]] = roi
+            qq = (q - [x0, y0]) * scale
+            w_src = max(np.linalg.norm(qq[1] - qq[0]), np.linalg.norm(qq[2] - qq[3]))
+            h_src = max(np.linalg.norm(qq[3] - qq[0]), np.linalg.norm(qq[2] - qq[1]))
+            true_ws[k] = int(np.clip(round(INPUT_HEIGHT * w_src / max(h_src, 1e-6)), 8, bucket_w))
+            homos[k] = quad_to_rect_homography(qq, true_ws[k])
+        with self._lock:
+            crops = warp_crops(
+                torch.from_numpy(canvas).to(self.device), torch.from_numpy(homos).to(self.device),
+                torch.arange(n_pad, device=self.device), torch.from_numpy(true_ws).to(self.device), bucket_w,
+            )
+            logits = self.recognizer_logits(crops)[:n].float().cpu().numpy()
+        frames = np.maximum(true_ws[:n] // 4 - 1, 1)
+        return logits, frames
+
+    def isbn_logits(self, image: np.ndarray, quad: np.ndarray, bucket_w: int = 384):
+        """Single-quad full-resolution logits (see :meth:`lines_logits`)."""
+        logits, frames = self.lines_logits(image, [quad], bucket_w)
+        return logits[0], int(frames[0])
+
+    def reread_low_conf(self, image: np.ndarray, results, *, conf_ths: float = 0.5,
+                        max_rereads: int = 8, bucket_w: int = 384, beam_width: int = 8):
+        """Re-read every result under ``conf_ths`` (lowest first, at most
+        ``max_rereads``) from the original pixels, decoded with the device
+        prefix beam in one batch; the reading with the better per-character
+        geometric-mean confidence wins. Returns a new list (same quads and
+        order)."""
+        idxs = [i for i, (_, t, c) in enumerate(results) if c < conf_ths and t]
+        idxs.sort(key=lambda i: results[i][2])
+        idxs = idxs[:max_rereads]
+        if not idxs:
+            return list(results)
+        logits, frames = self.lines_logits(image, [results[i][0] for i in idxs], bucket_w)
+        b_ids, b_lens, _ = ctc_beam_decode_device(
+            torch.from_numpy(logits).to(self.device), torch.from_numpy(frames).to(self.device),
+            beam_width=beam_width, max_len=48,
+        )
+        b_ids, b_lens = b_ids.cpu().numpy(), b_lens.cpu().numpy()
+        out = list(results)
+        for k, i in enumerate(idxs):
+            quad, text, conf = results[i]
+            lp = logits[k, : frames[k]].astype(np.float64)
+            m = lp.max(-1, keepdims=True)
+            lp = lp - (m + np.log(np.exp(lp - m).sum(-1, keepdims=True)))
+            text2 = self.charset.decode_ids(b_ids[k][: b_lens[k]])
+            # greedy-path confidence of the re-read (the product the first
+            # read carries)
+            best = lp.argmax(-1)
+            prev = np.concatenate([[-1], best[:-1]])
+            keep = (best != 0) & (best != prev)
+            conf2 = float(np.exp(lp.max(-1)[keep].sum())) if keep.any() else 0.0
+            # products shrink with emitted length: compare per-character
+            # geometric means so wider re-read crops are not penalized
+            n1, n2 = max(len(text), 1), max(len(text2), 1)
+            if text2 and conf2 ** (1.0 / n2) > conf ** (1.0 / n1):
+                out[i] = (quad, text2, conf2)
+        return out
+
+    def reread_isbn(self, image: np.ndarray, results) -> Optional[str]:
+        """Digit-biased full-resolution re-read of ISBN-suspect boxes (text
+        naming ISBN or a long digit-like run), most digits first; the first
+        checksum-valid ISBN wins (``decode.isbn``)."""
+        # imported here: decode.isbn needs extract.heuristics, whose package
+        # imports this module
+        from bbocr_tpu_torch.decode.isbn import decode_isbn, is_isbn_suspect
+
+        suspects = [(sum(c.isdigit() for c in text), quad) for quad, text, _ in results if is_isbn_suspect(text)]
+        for _, quad in sorted(suspects, key=lambda e: -e[0])[:3]:
+            logits, frames = self.isbn_logits(image, quad)
+            isbn = decode_isbn(logits[:frames], self.charset)
+            if isbn:
+                return isbn
+        return None
 
 
 def _to_unit_range(crops: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,6 @@ Counterpart of ``bbocr_tpu/runtime/orient.py``, in numpy: book photos are
 mostly shot in camera-landscape with the book sideways, and the detector
 does not read rotated lines, so the pipeline re-reads the photo at the
 four right-angle rotations and keeps the most *confidently* read one.
-One difference: ``read_with_rotations(reread_conf_ths > 0)`` raises, since
-the engine's low-confidence re-read is not ported yet (the JAX code skips
-the re-read silently on an engine that lacks it).
 """
 
 from __future__ import annotations
@@ -142,16 +139,12 @@ def read_with_rotations(
     """OCR under each np.rot90 k, keep the best by rotation_score.
 
     Returns (results, chosen_k); result boxes are in the ROTATED image's
-    coordinate frame. ``reread_conf_ths`` > 0 (the engine's low-confidence
-    re-read of the winning rotation) raises until re-reads are ported.
+    coordinate frame. ``reread_conf_ths`` > 0 applies the engine's
+    low-confidence full-resolution re-read to the winning rotation only (the
+    re-read needs the matching image frame, hence here and not per k).
     With ``BB_OCR_AUTO_ZOOM=1``, the winning rotation additionally gets a
     detection-guided :func:`zoom_reread` pass.
     """
-    if reread_conf_ths > 0:
-        raise NotImplementedError(
-            "read_with_rotations(reread_conf_ths > 0): the low-confidence re-read "
-            "(engine.reread_low_conf) is not ported yet: see ROADMAP.md Queue 1"
-        )
     best, best_score, best_k = [], (-1.0, -1.0), 0
     for k in rotations:
         rot = np.rot90(img, k) if k else img
@@ -164,4 +157,6 @@ def read_with_rotations(
     rot = np.rot90(img, best_k) if best_k else img
     if _auto_zoom_enabled() and best:
         best, _ = zoom_reread(engine, np.ascontiguousarray(rot), best)
+    if reread_conf_ths > 0 and best and hasattr(engine, "reread_low_conf"):
+        best = engine.reread_low_conf(np.ascontiguousarray(rot), best, conf_ths=reread_conf_ths)
     return best, best_k

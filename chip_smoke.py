@@ -20,9 +20,9 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    64 MB write between calls; it also times the contrast mean
    (``rounded_mean``) against the int64 sum it replaced;
 4. turns ``data/real/covers/book1.png`` into metadata JSON through the
-   port's extractor on the card (default bfloat16 engine, ``auto_rotate``
-   left to resolve per image, which for this photo is the rotation route,
-   as in the JAX package; the chosen k and the four rotation scores are
+   port's extractor on the card (bfloat16 engine with device warps,
+   extractor defaults: ``auto_rotate`` resolves to the rotation route for
+   this photo, as in the JAX package, then both re-reads; the chosen k and the four rotation scores are
    printed, and k must be the JAX package's, recorded in
    ``tests/data/book1_rotations_jax_bf16.json``), with every kernel launch
    count set to 0 just before and read just after: each kernel must have
@@ -49,7 +49,29 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    float32 (TF32 off) held to the JAX package's reading
    (``tests/data/IMG_9687_rotations_jax_f32.json``: the same k, box count
    and texts, quads within 1 px), and in bfloat16 (the same k; text
-   differences printed).
+   differences printed);
+8. the default route: ``BookMetadataExtractor(llm_backend="heuristic")``
+   with its defaults (host crop rectification by the C++ warp, rotations
+   for camera-shaped photos, the single-dispatch fast path for small
+   upright ones, then the low-confidence re-read with the device prefix
+   beam and the digit-biased ISBN re-read) on the five covers and
+   ``IMG_9687.jpg``, with every kernel launch count set to 0 just before
+   and read just after. In float32 (TF32 off) each photo's JSON must equal
+   the JAX package's default-route JSON
+   (``tests/data/default_route_jax_f32.json``); per photo the route, the
+   chosen k, the boxes the re-read replaced and the ISBN are printed beside
+   JAX's. In bfloat16 (the extractor built with no engine, so the default
+   engine) the differences from ``default_route_jax_bf16.json`` are
+   printed. The card's device beam on every recorded re-read batch must
+   give the CPU's ids, and the card's labels on every fast-path mask the
+   CPU's. Then it times the beam loop (host ms, device ms, kernel launches
+   per re-read batch), the host warp (ms per crop), prints the labeling's
+   step counts, times the fast path against ``readtext`` on ``book2.png``
+   and ``book4.png``, and a default-route photo's first call and warm call.
+
+Phases 4 to 7 run the engine of the first slices (device warps from the
+canvas, greedy decode), as their references were recorded; phase 8 runs
+the defaults.
 
 Any failed check exits non-zero. The line before the last is one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -82,6 +104,8 @@ from bbocr_tpu_torch.native import loader as native_loader
 from bbocr_tpu_torch.ops import rounded_mean
 from bbocr_tpu_torch.preprocess.chain import KERNEL_OPS, PLAIN_OPS, _preprocess
 from bbocr_tpu_torch.runtime import EngineConfig, OCREngine, orient
+from bbocr_tpu_torch.runtime import engine as engine_module
+from bbocr_tpu_torch.runtime import fastpath as fastpath_module
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BOOK1 = os.path.join(ROOT, "data", "real", "covers", "book1.png")
@@ -97,6 +121,10 @@ CAMERA = os.path.join(ROOT, "data", "real", "photos", "3", "IMG_9687.jpg")
 CAMERA_REFERENCE = os.path.join(ROOT, "tests", "data", "IMG_9687_rotations_jax_f32.json")
 BOOK1_ROTATIONS = os.path.join(ROOT, "tests", "data", "book1_rotations_jax_bf16.json")
 JPEG_DIGESTS = os.path.join(ROOT, "tests", "data", "jpeg_pillow_sha256.json")
+# The JAX package's default-route JSON and routes, float32 and bfloat16
+# (scripts/torch_port_reference.py --default-route [--dtype bfloat16])
+DEFAULT_ROUTE = os.path.join(ROOT, "tests", "data", "default_route_jax_f32.json")
+DEFAULT_ROUTE_BF16 = os.path.join(ROOT, "tests", "data", "default_route_jax_bf16.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SOURCE = "bbocr_tpu_torch/csrc/preprocess.cu"
@@ -331,10 +359,17 @@ class ReadRecorder:
         return k, scores, self.reads[k]
 
 
-def run_slice(dev):
-    from bbocr_tpu_torch.cli.process_book import make_extractor
+def slice_engine(dev, dtype=torch.bfloat16) -> OCREngine:
+    """The engine of phases 4 to 7: device warps from the canvas and greedy
+    decode, the configuration their JAX references were recorded in."""
+    return OCREngine.from_checkpoint(
+        os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
+        EngineConfig(compute_dtype=dtype, host_rectify=False, decoder="greedy"), device=dev,
+    )
 
-    extractor = make_extractor(device=dev, auto_rotate=None)
+
+def run_slice(dev):
+    extractor = BookMetadataExtractor(llm_backend="heuristic", engine=slice_engine(dev), device=dev)
     kernels.reset_launches()
     t0 = time.perf_counter()
     with ReadRecorder(extractor.engine) as rec:
@@ -595,6 +630,246 @@ def check_camera(dev, engine_f32: OCREngine, engine_bf16: OCREngine) -> None:
           f"{sorted(set(ref_texts) - set(texts))}", flush=True)
 
 
+class RouteRecorder:
+    """Records, while in use, which route each photo takes through an
+    engine: the reads (``readtext`` per rotation or ``readtext_fast``), the
+    chosen rotation, the results the low-confidence re-read replaced and
+    the ISBN re-read's answer (as scripts/torch_port_reference.py records
+    the JAX package's)."""
+
+    NAMES = ("readtext", "readtext_fast", "reread_low_conf", "reread_isbn")
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __enter__(self):
+        e = self.engine
+        self.reads, self.replaced, self.isbn, self.final = [], [], None, []
+        orig = {n: getattr(e, n) for n in self.NAMES}
+
+        def readtext(image):
+            self.reads.append(("readtext", orig["readtext"](image)))
+            return self.reads[-1][1]
+
+        def readtext_fast(image):
+            self.reads.append(("fast", orig["readtext_fast"](image)))
+            return self.reads[-1][1]
+
+        def reread_low_conf(image, results, **kw):
+            out = orig["reread_low_conf"](image, results, **kw)
+            self.replaced = [[i, a[1], b[1]] for i, (a, b) in enumerate(zip(results, out)) if a[1] != b[1]]
+            self.final = out
+            return out
+
+        def reread_isbn(image, results):
+            self.isbn = orig["reread_isbn"](image, results)
+            return self.isbn
+
+        for n, fn in zip(self.NAMES, (readtext, readtext_fast, reread_low_conf, reread_isbn)):
+            setattr(e, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.NAMES:
+            delattr(self.engine, n)
+
+    def summary(self) -> dict:
+        kinds = [kind for kind, _ in self.reads]
+        if kinds == ["readtext"] * 4:
+            scores = [(orient.rotation_score(r), orient._wordlike_mass(r)) for _, r in self.reads]
+            k = max(range(4), key=lambda i: (scores[i], -i))
+            route, chosen = "rotations", self.reads[k][1]
+        else:
+            k, route, chosen = None, "fast" if kinds == ["fast"] else "readtext", self.reads[-1][1]
+        final = self.final or chosen
+        return {"route": route, "k": k, "boxes": len(chosen), "replaced": self.replaced, "isbn": self.isbn,
+                "texts": [t for _, t, _ in final]}
+
+
+class Recording:
+    """Replaces ``module.name`` with a wrapper that records each call's
+    arguments (and, with ``keep_result``, its result) while in use."""
+
+    def __init__(self, module, name, keep_result=False):
+        self.module, self.name, self.keep_result = module, name, keep_result
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls.append((args, kw, out) if self.keep_result else (args, kw))
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def route_line(rel: str, got: dict, ref: dict) -> str:
+    shown = {k: got[k] for k in ("route", "k", "boxes", "replaced", "isbn")}
+    want = {k: ref[k] for k in ("route", "k", "boxes", "replaced", "isbn")}
+    return f"  {rel}: {json.dumps(shown)}; JAX {json.dumps(want)}"
+
+
+def run_default_route(extractor, photos, label: str, card: str) -> dict:
+    """Each photo through the extractor with its route recorded; returns
+    {photo: (meta without _processing_info, route summary, seconds)}."""
+    out = {}
+    for rel in photos:
+        t0 = time.perf_counter()
+        with RouteRecorder(extractor.engine) as rec:
+            meta = extractor.extract_metadata_from_images([os.path.join(ROOT, rel)], ocr_image_indices=[0])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        validate_schema(meta)
+        meta.pop("_processing_info")
+        out[rel] = (meta, rec.summary(), seconds)
+        print(f"default route, {label}, {rel}: {seconds:.3f} s; {card}", flush=True)
+    return out
+
+
+def profile_call(fn):
+    """(host ms of one synchronised call, device ms and kernel count from
+    torch.profiler's CUDA trace of one call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    run = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return host, sum(e.time_range.end - e.time_range.start for e in run) / 1e3, len(run)
+
+
+def check_default_route(dev, card: str) -> dict:
+    """Phase 8: the default route in float32 (held to the JAX package's
+    JSON) and bfloat16 (differences printed), the card's beam and labels
+    against the CPU's, and the route's timings. Returns the kernels'
+    launches over the float32 route."""
+    from bbocr_tpu_torch.decode.cc_device import label_components_device
+    from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
+
+    with open(DEFAULT_ROUTE) as f:
+        ref = json.load(f)["photos"]
+    with open(DEFAULT_ROUTE_BF16) as f:
+        ref_bf16 = json.load(f)["photos"]
+    photos = list(ref)
+    engine = OCREngine.from_checkpoint(
+        os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
+        EngineConfig(compute_dtype=torch.float32), device=dev,
+    )
+    if not (engine.config.host_rectify and engine.config.decoder == "greedy"):
+        fail(f"the default engine configuration is not the JAX default: {engine.config}")
+    extractor = BookMetadataExtractor(llm_backend="heuristic", engine=engine, device=dev)
+    kernels.reset_launches()
+    with Recording(engine_module, "ctc_beam_decode_device") as beams, \
+            Recording(fastpath_module, "label_components_device", keep_result=True) as labels, \
+            Recording(engine_module, "host_warp_crop") as warps:
+        got = run_default_route(extractor, photos, "float32", card)
+    launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+    print(f"default route, float32: launches {json.dumps(launches)}", flush=True)
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"kernel {name} was not launched by the default route")
+    bad = []
+    for rel in photos:
+        meta, route, _ = got[rel]
+        print(route_line(rel, route, ref[rel]), flush=True)
+        if meta != ref[rel]["meta"] or route["route"] != ref[rel]["route"] or route["k"] != ref[rel]["k"]:
+            bad.append(rel)
+            print(f"    texts {route['texts']}\n    JAX   {ref[rel]['texts']}\n    JSON {json.dumps(meta)}\n"
+                  f"    JAX  {json.dumps(ref[rel]['meta'])}", flush=True)
+    if bad:
+        fail(f"default route, float32: JSON or route differs from the JAX package's on {bad}")
+    print(f"default route, float32: the JSON of all {len(photos)} photos equals the JAX package's, routes "
+          f"{[got[r][1]['route'] for r in photos]}", flush=True)
+
+    # the card's beam and labels against the CPU's on this run's inputs
+    worst = 0.0
+    for args, kw in beams.calls:
+        logits, lengths = args[0], args[1] if len(args) > 1 else kw.get("lengths")
+        on_card = beams.orig(*args, **kw)
+        on_cpu = beams.orig(logits.cpu(), None if lengths is None else lengths.cpu(),
+                            **{k: v for k, v in kw.items() if k != "lengths"})
+        if not (torch.equal(on_card[0].cpu(), on_cpu[0]) and torch.equal(on_card[1].cpu(), on_cpu[1])):
+            fail(f"device beam on the card differs from the CPU's on a re-read batch of {tuple(logits.shape)}")
+        worst = max(worst, float((on_card[2].cpu() - on_cpu[2]).abs().max()))
+    print(f"device beam: {len(beams.calls)} re-read batches {[tuple(a[0].shape) for a, _ in beams.calls]}, "
+          f"ids equal to the CPU's, scores within {worst:.3g}", flush=True)
+    if not beams.calls or not labels.calls:
+        fail(f"the default route made {len(beams.calls)} beam calls and {len(labels.calls)} labelings")
+    steps = []
+    for (args, kw, (lab, n)) in labels.calls:
+        cpu_lab, cpu_n = label_components_device(args[0].cpu(), **kw)
+        if not torch.equal(lab.cpu(), cpu_lab) or n != cpu_n:
+            fail(f"device labels on the card differ from the CPU's on a mask of {tuple(args[0].shape)}")
+        steps.append((tuple(args[0].shape), n))
+    print(f"CC labeling: {len(labels.calls)} masks, labels equal to the CPU's; (mask shape, steps) {steps}; "
+          f"{card}", flush=True)
+
+    # timings
+    big = max(beams.calls, key=lambda c: c[0][0].shape[0] * c[0][0].shape[1])
+    host, device, count = profile_call(lambda: beams.orig(*big[0], **big[1]))
+    print(f"beam loop on a re-read batch of {tuple(big[0][0].shape)}: {host:.3f} ms host (synchronised), "
+          f"{device:.3f} ms device, {count} kernels launched; {card}", flush=True)
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for args, kw in warps.calls:
+            engine_module.host_warp_crop(*args, **kw)
+        reps.append((time.perf_counter() - t0) * 1e3 / max(len(warps.calls), 1))
+    print(f"host warp: {len(warps.calls)} crops, {statistics.median(reps):.4f} ms per crop (median of 3 passes, "
+          f"host CPU of the machine of the {card})", flush=True)
+
+    # bfloat16: the extractor with no other argument builds the default engine
+    extractor_bf16 = BookMetadataExtractor(llm_backend="heuristic", device=dev)
+    got_bf16 = run_default_route(extractor_bf16, photos, "bfloat16", card)
+    differ = 0
+    for rel in photos:
+        meta, route, _ = got_bf16[rel]
+        print(route_line(rel, route, ref_bf16[rel]), flush=True)
+        fields = sorted(k for k in set(meta) | set(ref_bf16[rel]["meta"]) if meta.get(k) != ref_bf16[rel]["meta"].get(k))
+        if fields:
+            differ += 1
+            print(f"    bfloat16 JSON differs from JAX's in {fields}: "
+                  f"{json.dumps({k: [meta.get(k), ref_bf16[rel]['meta'].get(k)] for k in fields})}", flush=True)
+    print(f"default route, bfloat16: {len(photos) - differ} of {len(photos)} photos' JSON equal to the JAX "
+          f"package's bfloat16 JSON (recorded, not required)", flush=True)
+    first = photos[0]
+    t0 = time.perf_counter()
+    run_default_route(extractor_bf16, [first], "bfloat16, warm", card)
+    print(f"default route, bfloat16, {first}: first call {got_bf16[first][2]:.3f} s, warm call "
+          f"{time.perf_counter() - t0:.3f} s; {card}", flush=True)
+    eng = extractor_bf16.engine
+    for name in ("book2.png", "book4.png"):
+        image = preprocess_for_book_cover(load_rgb(os.path.join(ROOT, "data", "real", "covers", name)), device=dev)[0]
+        image = image.cpu().numpy()
+        times = {}
+        for label, fn in (("readtext_fast", eng.readtext_fast), ("readtext", eng.readtext),
+                          ("readtext", eng.readtext), ("readtext_fast", eng.readtext_fast)):
+            fn(image)
+            t = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(image)
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            times.setdefault(label, []).append(statistics.median(t))
+        print(f"{name} ({image.shape[0]}x{image.shape[1]}), bfloat16, warm, median of 5 synchronised calls, in turns: "
+              f"readtext_fast {times['readtext_fast']} ms, readtext {times['readtext']} ms; {card}", flush=True)
+    return launches
+
+
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
@@ -647,10 +922,7 @@ def main() -> int:
     log("phase 5: float32, cuDNN TF32 off: kernels against plain versions end to end")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    engine = OCREngine.from_checkpoint(
-        os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
-        EngineConfig(compute_dtype=torch.float32), device=dev,
-    )
+    engine = slice_engine(dev, torch.float32)
     img_k, res_k = f32_read(rgb, dev, KERNEL_OPS, engine)
     img_p, res_p = f32_read(rgb, dev, PLAIN_OPS, engine)
     texts_k = [t for _, t, _ in res_k]
@@ -677,9 +949,14 @@ def main() -> int:
     check_jpeg_digests()
     check_camera(dev, engine, extractor.engine)
 
+    log("phase 8: the default route (host rectification, rotations or fast path, both re-reads)")
+    for name, count in check_default_route(dev, card).items():
+        report[name]["launches_default_route"] = count
+
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed"]
+             "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed",
+             "launches_default_route"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,7 +46,7 @@ def main() -> None:
         compute_dtype=jnp.bfloat16, host_rectify=False, wire_bits=8, decoder="greedy",
         detect_pool=1, detect_coarse=0,
     ))
-    port = OCREngine.from_checkpoint(craft, crnn, EngineConfig(), device="cpu")
+    port = OCREngine.from_checkpoint(craft, crnn, EngineConfig(host_rectify=False, decoder="greedy"), device="cpu")
     if args.lstm == "nn":
         lstms = {}
         for m in (port.crnn.rnn0, port.crnn.rnn1):

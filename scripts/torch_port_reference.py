@@ -6,6 +6,9 @@ references for the PyTorch port.
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --rotations \
         [--dtype float32|bfloat16] [--image data/real/photos/3/IMG_9687.jpg] [--out PATH]
     python scripts/torch_port_reference.py --jpeg-digests [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --default-route \
+        [--dtype float32|bfloat16] [--canvas HxW] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --covers [--out PATH]
 
 Default mode: the photo goes through ``_chain_gray_pallas`` and then
 ``OCREngine.readtext`` in the given compute type with the configuration the
@@ -26,6 +29,28 @@ compute type. It writes the chosen k, each rotation's (``rotation_score``,
 ``chip_smoke.py`` holds the card against ``IMG_9687_rotations_jax_f32.json``
 and ``book1_rotations_jax_bf16.json`` (``--image data/real/covers/book1.png
 --dtype bfloat16``).
+
+``--default-route``: the JAX extractor's default route, as
+``BookMetadataExtractor(llm_backend="heuristic")`` takes it with an
+unwrapped ``OCREngine`` of the given compute type and otherwise default
+configuration (host rectification, greedy decode; with no ``engine``
+argument and ``BB_OCR_BATCHING`` unset the JAX extractor wraps its engine
+in ``BatchingOCR``, which has neither the fast path nor the re-reads):
+rotations for camera-shaped photos, the fast path for small upright ones,
+then the low-confidence and ISBN re-reads. For each of the five covers of
+``data/real/covers/`` and, on the full canvas menu,
+``data/real/photos/3/IMG_9687.jpg``, it records the metadata JSON
+(``_processing_info`` aside), the route, the chosen rotation, the boxes the
+low-confidence re-read replaced, the ISBN re-read's answer and the final
+texts, in ``tests/data/default_route_jax_f32.json`` (``_bf16``; with
+``--canvas 640x480`` the engine has that one canvas and the file name ends
+in ``_640x480``). ``chip_smoke.py`` holds the card against the full-menu
+files, ``tests/test_torch_slice.py`` the CPU against the 640x480 one.
+
+``--covers``: the five covers through the JAX extractor with rotations,
+re-reads and the fast path off, a float32 engine on one 640x480 canvas,
+device warps and greedy decode, to ``tests/data/covers_jax_f32_640x480.json``
+(``tests/test_torch_slice.py::test_cover_metadata_matches_jax_extractor``).
 
 ``--jpeg-digests``: the SHA-256 of Pillow's RGB decoding of every JPEG in
 ``books/`` and ``data/real/photos/``, with its shape, to
@@ -56,15 +81,16 @@ def repository_jpegs():
     return sorted(os.path.relpath(p, ROOT) for p in found if p.lower().endswith((".jpg", ".jpeg")))
 
 
-def _engine(dtype: str):
+def _engine(dtype: str, **config):
+    """The JAX engine in ``dtype``; by default in the configuration of the
+    port's first slices (device warps, greedy decode)."""
     import jax.numpy as jnp
 
     from bbocr_tpu.runtime.engine import EngineConfig, OCREngine
 
-    config = EngineConfig(
-        compute_dtype=getattr(jnp, dtype), host_rectify=False, wire_bits=8,
-        decoder="greedy", detect_pool=1, detect_coarse=0,
-    )
+    knobs = dict(host_rectify=False, wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0)
+    knobs.update(config)
+    config = EngineConfig(compute_dtype=getattr(jnp, dtype), **knobs)
     return OCREngine.from_checkpoint(
         os.path.join(ROOT, "checkpoints", "craft.npz"),
         os.path.join(ROOT, "checkpoints", "crnn.npz"), config,
@@ -131,6 +157,92 @@ def rotations_reading(image: str, dtype: str) -> dict:
     }
 
 
+COVERS = [os.path.join("data", "real", "covers", f"book{i}.png") for i in (1, 2, 4, 5, 6)]
+CAMERA = os.path.relpath(CAMERA_PHOTO, ROOT)
+
+
+class RouteRecorder:
+    """Wraps an engine and records which route each photo took: the reads
+    (``readtext`` per rotation, or ``readtext_fast``), the chosen rotation,
+    the results the low-confidence re-read replaced, and the ISBN re-read's
+    answer."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.reset()
+
+    def reset(self):
+        self.reads, self.replaced, self.isbn, self.final = [], [], None, []
+
+    def readtext(self, image):
+        self.reads.append(("readtext", self.engine.readtext(image)))
+        return self.reads[-1][1]
+
+    def readtext_fast(self, image):
+        self.reads.append(("fast", self.engine.readtext_fast(image)))
+        return self.reads[-1][1]
+
+    def reread_low_conf(self, image, results, **kw):
+        out = self.engine.reread_low_conf(image, results, **kw)
+        self.replaced = [[i, a[1], b[1]] for i, (a, b) in enumerate(zip(results, out)) if a[1] != b[1]]
+        self.final = out
+        return out
+
+    def reread_isbn(self, image, results):
+        self.isbn = self.engine.reread_isbn(image, results)
+        return self.isbn
+
+    def timings(self):
+        return self.engine.timings()
+
+    def summary(self) -> dict:
+        from bbocr_tpu.runtime.orient import _wordlike_mass, rotation_score
+
+        kinds = [kind for kind, _ in self.reads]
+        if kinds == ["readtext"] * 4:
+            scores = [(rotation_score(r), _wordlike_mass(r)) for _, r in self.reads]
+            k = max(range(4), key=lambda i: (scores[i], -i))
+            route, chosen = "rotations", self.reads[k][1]
+        else:
+            k, route, chosen = None, "fast" if kinds == ["fast"] else "readtext", self.reads[-1][1]
+        final = self.final or chosen
+        return {"route": route, "k": k, "boxes": len(chosen), "replaced": self.replaced, "isbn": self.isbn,
+                "texts": [t for _, t, _ in final]}
+
+
+def extractor_readings(photos, dtype: str, canvas, knobs: dict, engine_config: dict) -> dict:
+    """Metadata JSON and route of each photo through the JAX extractor."""
+    from bbocr_tpu.extract.extractor import BookMetadataExtractor
+    from bbocr_tpu.runtime.bucketing import CanvasSpec
+
+    if canvas is not None:
+        engine_config = dict(engine_config, canvases=(CanvasSpec(*canvas),))
+    recorder = RouteRecorder(_engine(dtype, **engine_config))
+    extractor = BookMetadataExtractor(llm_backend="heuristic", engine=recorder, **knobs)
+    out = {}
+    for rel in photos:
+        recorder.reset()
+        t0 = time.perf_counter()
+        meta = extractor.extract_metadata_from_images([os.path.join(ROOT, rel)], ocr_image_indices=[0])
+        meta.pop("_processing_info")
+        out[rel] = {"meta": meta, **recorder.summary()}
+        print(f"{rel}: {time.perf_counter() - t0:.1f} s, {json.dumps({k: v for k, v in out[rel].items() if k != 'meta'})}")
+    return {"dtype": dtype, "canvas": canvas, "knobs": knobs, "engine_config": engine_config and {
+        k: v for k, v in engine_config.items() if k != "canvases"}, "photos": out}
+
+
+def default_route(dtype: str, canvas) -> dict:
+    photos = COVERS + ([CAMERA] if canvas is None else [])
+    # the JAX EngineConfig defaults but the compute type (BB_OCR_* unset)
+    return extractor_readings(photos, dtype, canvas, {}, dict(
+        host_rectify=True, wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0))
+
+
+def covers_without_route() -> dict:
+    knobs = dict(auto_rotate=False, reread_low_conf=False, isbn_reread=False, fast_single=False, warm_model=False)
+    return extractor_readings(COVERS, "float32", (640, 480), knobs, {})
+
+
 def jpeg_digests() -> dict:
     import numpy as np
     from PIL import Image
@@ -160,13 +272,24 @@ def main() -> None:
     mode = p.add_mutually_exclusive_group()
     mode.add_argument("--rotations", action="store_true")
     mode.add_argument("--jpeg-digests", action="store_true")
+    mode.add_argument("--default-route", action="store_true")
+    mode.add_argument("--covers", action="store_true")
+    p.add_argument("--canvas", default=None, help="HxW: one canvas instead of the menu (--default-route)")
     p.add_argument("--image", default=None)
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--out", default=None)
     args = p.parse_args()
     data = os.path.join(ROOT, "tests", "data")
     suffix = {"float32": "f32", "bfloat16": "bf16"}[args.dtype]
-    if args.jpeg_digests:
+    if args.default_route:
+        canvas = tuple(int(v) for v in args.canvas.split("x")) if args.canvas else None
+        out = default_route(args.dtype, canvas)
+        tail = f"_{args.canvas}" if args.canvas else ""
+        out_path = args.out or os.path.join(data, f"default_route_jax_{suffix}{tail}.json")
+    elif args.covers:
+        out = covers_without_route()
+        out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")
+    elif args.jpeg_digests:
         out = jpeg_digests()
         out_path = args.out or os.path.join(data, "jpeg_pillow_sha256.json")
     elif args.rotations:
@@ -181,7 +304,7 @@ def main() -> None:
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"{len(out.get('texts', out))} entries -> {out_path}")
+    print(f"{len(out.get('texts', out.get('photos', out)))} entries -> {out_path}")
 
 
 if __name__ == "__main__":

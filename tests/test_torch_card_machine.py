@@ -1,10 +1,12 @@
 """The port runs where JAX, Pillow, OpenCV, jsonschema and requests are
 missing, as on the machine with the card.
 
-A subprocess blocks those imports with a ``sys.meta_path`` finder, runs
-the port's extractor on a small PNG on the CPU, decodes a JPEG of
-``books/`` with the port's decoder, reads it at the four rotations, and
-imports ``chip_smoke`` without running its main.
+A subprocess blocks those imports with a ``sys.meta_path`` finder and
+runs the port's extractor with the CLI's defaults on the CPU: a small PNG
+(the fast path, then both re-reads, crops warped on the host by the C++
+warp), and a JPEG of ``books/`` decoded by the port's decoder and read
+through the rotation route (``auto_rotate`` left to resolve, then both
+re-reads); then it imports ``chip_smoke`` without running its main.
 """
 
 import json
@@ -48,23 +50,30 @@ SCRIPT = textwrap.dedent(
     from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
     from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
 
-    extractor = make_extractor(device="cpu")
-    extractor._engine = OCREngine.from_checkpoint(
+    extractor = make_extractor(device="cpu", auto_rotate=None)
+    engine = extractor._engine = OCREngine.from_checkpoint(
         "checkpoints/craft.npz", "checkpoints/crnn.npz",
         EngineConfig(canvases=(CanvasSpec(288, 224),), compute_dtype=torch.float32),
         device="cpu",
     )
+    calls = []
+    for name in ("readtext", "readtext_fast", "reread_low_conf", "reread_isbn"):
+        def counted(*args, _fn=getattr(engine, name), _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        setattr(engine, name, counted)
     meta = extractor.extract_metadata_from_images([sys.argv[1]], ocr_image_indices=[0])
+    small_route, calls[:] = list(calls), []
 
     from bbocr_tpu_torch.io import load_rgb
-    from bbocr_tpu_torch.runtime.orient import read_with_rotations
 
     photo = load_rgb("books/1/IMG_0000.jpg")
-    results, k = read_with_rotations(extractor._engine, photo[::4, ::4])
+    camera = extractor.extract_metadata_from_images([photo], ocr_image_indices=[0])
     import chip_smoke  # noqa: F401  (imported, main not run)
 
     loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
-    print(json.dumps({"meta": meta, "loaded": loaded, "photo": list(photo.shape), "k": k, "boxes": len(results)}))
+    print(json.dumps({"meta": meta, "camera": camera, "loaded": loaded, "photo": list(photo.shape),
+                      "small_route": small_route, "camera_route": calls, "host_rectify": engine.config.host_rectify}))
     """
 )
 
@@ -85,7 +94,11 @@ def test_port_runs_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
     assert out["loaded"] == []
     assert out["meta"]["_processing_info"]["structurer"] == "heuristic"
     assert "title" in out["meta"]
-    assert out["photo"] == [800, 600, 3] and out["k"] in (0, 1, 2, 3)
+    assert out["photo"] == [800, 600, 3] and out["host_rectify"]
+    assert out["small_route"][0] == "readtext_fast" and out["small_route"][-2:] == ["reread_low_conf", "reread_isbn"]
+    assert out["camera_route"][:4] == ["readtext"] * 4
+    assert out["camera_route"][4:] == ["reread_low_conf", "reread_isbn"]
+    assert out["camera"]["_processing_info"]["ocr_boxes"] > 0
 
 
 def _run_smoke(cwd, script):

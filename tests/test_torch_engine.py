@@ -55,7 +55,7 @@ def engines(cover_u8):
         wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
     ))
     port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
-        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32,
+        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32, host_rectify=False, decoder="greedy",
     ), device="cpu")
     return jax_engine, port
 
@@ -171,7 +171,8 @@ def test_readtext_bf16_matches_jax_engine(cover_u8):
         canvases=(JaxCanvasSpec(*CANVAS),), compute_dtype=jnp.bfloat16, host_rectify=False,
         wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
     ))
-    port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(canvases=(CanvasSpec(*CANVAS),)), device="cpu")
+    port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
+        canvases=(CanvasSpec(*CANVAS),), host_rectify=False, decoder="greedy"), device="cpu")
     assert port.config.compute_dtype == torch.bfloat16
     ref = jax_engine.readtext(cover_u8)
     got = port.readtext(cover_u8)
@@ -200,11 +201,8 @@ def test_extractor_makes_valid_json(engines, tmp_path):
     [
         {"llm_backend": "ollama"},
         {"crop_for_ocr": True},
-        {"isbn_reread": True},
-        {"reread_low_conf": True},
-        {"fast_single": True},
     ],
-    ids=["llm", "autocrop", "isbn_reread", "reread", "fast"],
+    ids=["llm", "autocrop"],
 )
 def test_extractor_refuses_unported_knobs(kwargs):
     base = dict(llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False, fast_single=False)
@@ -247,22 +245,147 @@ def test_extractor_auto_rotate_takes_the_rotation_route(auto_rotate, shape, read
     assert engine.shapes == reads
 
 
-def test_extractor_refuses_fast_path_resolving_true():
-    """An upright small photo without rotations resolves to the fast path,
-    which is not ported."""
-    extractor = BookMetadataExtractor(
-        llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False,
-        device="cpu", engine=_ShapeEngine(),
-    )
-    with pytest.raises(NotImplementedError, match="fast path"):
-        extractor._ocr_text(np.zeros((800, 600), np.float32), 0)
-
-
 @pytest.mark.parametrize(
     "kwargs",
-    [{"host_rectify": True}, {"wire_bits": 4}],
-    ids=["host_rectify", "wire_bits"],
+    [{"wire_bits": 4}],
+    ids=["wire_bits"],
 )
 def test_engine_refuses_unported_options(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         OCREngine({"params": {}}, {"params": {}}, EngineConfig(**kwargs), device="cpu")
+
+
+_PORTED_FIELDS = ("canvases", "width_buckets", "batch_capacities", "min_confidence", "contrast_ths",
+                  "fast_max_boxes", "fast_bucket_w", "merge_buckets_below", "decoder", "host_rectify", "wire_bits")
+
+
+@pytest.mark.parametrize(
+    "env",
+    [{}, {"BB_OCR_DECODER": "beam", "BB_OCR_HOST_RECTIFY": "0"}, {"BB_OCR_HOST_RECTIFY": "false"},
+     {"BB_OCR_HOST_RECTIFY": "yes"}],
+    ids=["defaults", "beam_device_warp", "false", "yes"],
+)
+def test_engine_config_defaults_match_jax(monkeypatch, env):
+    """``EngineConfig()`` equals the JAX one on every ported field, reading
+    ``BB_OCR_DECODER`` and ``BB_OCR_HOST_RECTIFY`` when it is constructed."""
+    for name in ("BB_OCR_DECODER", "BB_OCR_HOST_RECTIFY", "BB_OCR_WIRE_BITS"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    ours, ref = EngineConfig(), JaxEngineConfig()
+    for name in _PORTED_FIELDS:
+        got, want = getattr(ours, name), getattr(ref, name)
+        if name == "canvases":
+            got, want = [(c.height, c.width) for c in got], [(c.height, c.width) for c in want]
+        assert got == want, name
+    for name, value in dataclasses.asdict(ours.detection).items():  # the JAX one adds use_native
+        assert getattr(ref.detection, name) == value, name
+    assert str(ours.compute_dtype).split(".")[-1] == jnp.dtype(ref.compute_dtype).name
+
+
+def test_readtext_host_rectify_matches_jax_engine(cover_u8):
+    """Both engines with their default host rectification (crops warped
+    from the original photo), float32: the same boxes, quads within 1 px,
+    equal texts, confidences within 1e-3."""
+    jax_engine = _jax_engine(config=JaxEngineConfig(
+        canvases=(JaxCanvasSpec(*CANVAS),), compute_dtype=jnp.float32, host_rectify=True,
+        wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
+    ))
+    port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
+        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32, host_rectify=True, decoder="greedy",
+    ), device="cpu")
+    image = cv2.resize(cover_u8, (480, 600), interpolation=cv2.INTER_CUBIC)  # finer than the canvas
+    ref = jax_engine.readtext(image)
+    got = port.readtext(image)
+    assert len(ref) > 0 and len(got) == len(ref)
+    for (q, t, c), (rq, rt, rc) in zip(got, ref):
+        assert t == rt
+        assert np.abs(q - rq).max() <= 1.0
+        assert abs(c - rc) <= 1e-3
+
+
+def test_recognize_with_beam_decoder_matches_jax(engines, cover_u8):
+    """``decoder="beam"``: the recognize program decodes with the device
+    prefix beam, confidence exp(score); the contrast retry is forced.
+    Equal ids and lengths, confidences within 1e-4."""
+    jax_engine, port = engines
+    crops = np.stack([cover_u8[40:72, 20:148], cover_u8[200:232, 100:228], np.full((32, 128), 128, np.uint8)]).astype(np.float32)
+    lengths = np.array([31, 20, 31], np.int32)
+    valid = np.array([True, True, False])
+    jax_beam = _jax_engine(jax_engine.craft_params, jax_engine.crnn_params,
+                           dataclasses.replace(jax_engine.config, decoder="beam", contrast_ths=0.99))
+    port.config = dataclasses.replace(port.config, decoder="beam", contrast_ths=0.99)
+    try:
+        ref = [np.asarray(a) for a in jax_beam._recognize(jax_beam.crnn_params, jnp.asarray(crops), jnp.asarray(lengths), jnp.asarray(valid))]
+        got = [a.numpy() for a in port.recognize(torch.from_numpy(crops), torch.from_numpy(lengths), torch.from_numpy(valid))]
+    finally:
+        port.config = dataclasses.replace(port.config, decoder="greedy", contrast_ths=0.1)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    np.testing.assert_allclose(got[2], ref[2], rtol=1e-4, atol=1e-6)
+
+
+class _RouteEngine:
+    """Fake engine recording the calls of the extractor's OCR route; its
+    re-reads can be told to fail."""
+
+    def __init__(self, fail=None):
+        self.calls, self.fail = [], fail
+
+    def _results(self):
+        return [(np.float32([[10, 10], [200, 10], [200, 40], [10, 40]]), "ISBN 978O3I6769488", 0.3),
+                (np.float32([[10, 60], [150, 60], [150, 90], [10, 90]]), "The Title", 0.9)]
+
+    def readtext(self, image):
+        self.calls.append(("readtext", image.shape))
+        return self._results()
+
+    def readtext_fast(self, image):
+        self.calls.append(("fast", image.shape))
+        return self._results()
+
+    def reread_low_conf(self, image, results, conf_ths):
+        self.calls.append(("reread", image.shape, conf_ths, len(results)))
+        if self.fail == "reread":
+            raise RuntimeError("re-read failed")
+        return [(q, t.replace("O3I", "031"), c) for q, t, c in results]
+
+    def reread_isbn(self, image, results):
+        self.calls.append(("isbn", image.shape, [t for _, t, _ in results]))
+        if self.fail == "isbn":
+            raise RuntimeError("ISBN re-read failed")
+        return "9780316769488"
+
+    def timings(self):
+        return {}
+
+
+@pytest.mark.parametrize("shape", [(1300, 900), (800, 600), (2000, 1000)], ids=["camera", "small", "downscaled"])
+def test_extractor_default_route_calls_as_jax(shape):
+    """With its defaults the extractor takes the JAX extractor's route:
+    rotations (re-read of the winner inside) for camera-shaped photos, the
+    fast path then the re-read for small upright ones, then the ISBN re-read
+    on the unrotated image; the ISBN becomes its own line."""
+    from bbocr_tpu.extract.extractor import BookMetadataExtractor as JaxExtractor
+
+    image = np.random.default_rng(0).integers(0, 256, shape).astype(np.float32)
+    ours, ref = _RouteEngine(), _RouteEngine()
+    got = BookMetadataExtractor(llm_backend="heuristic", device="cpu", engine=ours)._ocr_text(image, 0)
+    exp = JaxExtractor(llm_backend="heuristic", engine=ref)._ocr_text(image, 0)
+    assert ours.calls == ref.calls
+    assert ours.calls[-1][0] == "isbn" and ours.calls[-2][0] == "reread"
+    assert ("fast" in ours.calls[0]) == (shape == (800, 600))
+    assert got[:3] == exp
+    assert "ISBN 9780316769488" in got[1]
+
+
+@pytest.mark.parametrize("fail", ["reread", "isbn"])
+def test_extractor_rereads_propagate_errors(fail):
+    """Unlike the JAX extractor, which skips a failed re-read, the port
+    raises: a broken re-read cannot pass unseen."""
+    from bbocr_tpu.extract.extractor import BookMetadataExtractor as JaxExtractor
+
+    image = np.zeros((800, 600), np.float32)
+    JaxExtractor(llm_backend="heuristic", engine=_RouteEngine(fail))._ocr_text(image, 0)
+    with pytest.raises(RuntimeError, match="failed"):
+        BookMetadataExtractor(llm_backend="heuristic", device="cpu", engine=_RouteEngine(fail))._ocr_text(image, 0)

@@ -76,3 +76,36 @@ def test_cuda_wrapper_rejects_cpu_mean(cuda_device):
     x = torch.zeros((1, 8, 8), device=cuda_device)
     with pytest.raises(ValueError):
         kernels.enhance_u8(x, torch.zeros(1), 1.9, 1.2)
+
+
+@pytest.mark.parametrize("shape,lengths", [((8, 95, 97), [95, 60, 31, 1, 95, 80, 47, 12]), ((3, 24, 12), None)],
+                         ids=["reread_batch", "small"])
+def test_cuda_beam_matches_cpu(cuda_device, shape, lengths):
+    """The device prefix beam on the card: the CPU's ids and lengths, scores
+    within 1e-4 (exp and log are not the CPU's to the last bit)."""
+    from bbocr_tpu_torch.decode.beam_device import ctc_beam_decode_device
+
+    logits = torch.from_numpy(np.random.default_rng(12).normal(0, 3, shape).astype(np.float32))
+    if lengths is None:
+        logits = torch.round(logits)  # ties
+    lens = None if lengths is None else torch.tensor(lengths)
+    cpu = ctc_beam_decode_device(logits, lens, max_len=48)
+    card = ctc_beam_decode_device(logits.to(cuda_device), None if lens is None else lens.to(cuda_device), max_len=48)
+    assert torch.equal(card[0].cpu(), cpu[0]) and torch.equal(card[1].cpu(), cpu[1])
+    assert float((card[2].cpu() - cpu[2]).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("max_iters", [1024, 13])
+def test_cuda_labels_match_cpu(cuda_device, max_iters):
+    """Device CC labeling and component stats on the card equal the CPU's,
+    also when the step cap stops the labeling early."""
+    from bbocr_tpu_torch.decode.cc_device import component_stats_device, label_components_device
+
+    rng = np.random.default_rng(13)
+    mask = torch.from_numpy(rng.uniform(0, 1, (120, 160)) > 0.45)
+    score = torch.from_numpy(rng.uniform(0, 1, (120, 160)).astype(np.float32))
+    cpu, cpu_steps = label_components_device(mask, max_iters=max_iters)
+    card, card_steps = label_components_device(mask.to(cuda_device), max_iters=max_iters)
+    assert torch.equal(card.cpu(), cpu) and card_steps == cpu_steps
+    for a, b in zip(component_stats_device(card, 24, score.to(cuda_device)), component_stats_device(cpu, 24, score)):
+        assert torch.equal(a.cpu(), b)

@@ -1,8 +1,10 @@
 """The port's rotation handling (``bbocr_tpu_torch.runtime.orient``) against
-the JAX package's ``bbocr_tpu.runtime.orient``, on the CPU: the scores and
-the zoom on hand-made result lists, then ``read_with_rotations`` and the
-extractor with ``auto_rotate`` on, with float32 engines at one small
-canvas, on ``book1.png`` halved, upright and turned a quarter."""
+the JAX package's ``bbocr_tpu.runtime.orient``, on the CPU: the scores, the
+zoom and the re-read of the winning rotation on hand-made result lists,
+then ``read_with_rotations`` and the extractor with ``auto_rotate`` on,
+with float32 engines at one small canvas, on ``book1.png`` halved, upright
+and turned a quarter; last the extractor's default route (host
+rectification, rotations, both re-reads) on the turned cover."""
 
 import os
 
@@ -106,11 +108,38 @@ def test_auto_zoom_flag_reads_like_jax(monkeypatch, value):
     assert orient._auto_zoom_enabled() == jax_orient._auto_zoom_enabled()
 
 
-def test_read_with_rotations_refuses_reread():
-    """The low-confidence re-read of the winning rotation is not ported: the
-    port raises where the JAX code would skip it on an engine without it."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        orient.read_with_rotations(_CropEngine([]), np.zeros((8, 8), np.uint8), reread_conf_ths=0.5)
+class _RotationEngine:
+    """Fake engine: reads each rotation as a fixed result list (the second
+    one carries the most confident text) and records its re-reads."""
+
+    def __init__(self):
+        self.reads, self.rereads = [], []
+
+    def readtext(self, img):
+        self.reads.append(img.shape)
+        k = len(self.reads) - 1
+        return RESULTS["confident"] if k == 1 else RESULTS["mixed"] if k == 3 else RESULTS["junk"]
+
+    def reread_low_conf(self, img, results, conf_ths):
+        self.rereads.append((np.array(img), [t for _, t, _ in results], conf_ths))
+        return [(q, t.upper(), c) for q, t, c in results]
+
+
+@pytest.mark.parametrize("ths", [0.0, 0.5], ids=["off", "on"])
+def test_read_with_rotations_rereads_the_winner_as_jax(ths):
+    """``reread_conf_ths > 0``: the winning rotation alone is re-read, in its
+    own frame; 0 leaves it as read."""
+    img = np.random.default_rng(1).integers(0, 256, (30, 50)).astype(np.uint8)
+    ours, ref = _RotationEngine(), _RotationEngine()
+    got, k = orient.read_with_rotations(ours, img, reread_conf_ths=ths)
+    exp, exp_k = jax_orient.read_with_rotations(ref, img, reread_conf_ths=ths)
+    assert k == exp_k == 1
+    assert ours.reads == ref.reads
+    assert [t for _, t, _ in got] == [t for _, t, _ in exp]
+    assert len(ours.rereads) == len(ref.rereads) == (1 if ths else 0)
+    for (a, ta, ca), (b, tb, cb) in zip(ours.rereads, ref.rereads):
+        np.testing.assert_array_equal(a, b)
+        assert a.shape == (50, 30) and ta == tb and ca == cb
 
 
 @pytest.fixture(scope="module")
@@ -122,7 +151,7 @@ def engines():
             wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
         ))
     port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
-        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32,
+        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32, host_rectify=False, decoder="greedy",
     ), device="cpu")
     return jax_engine, port
 
@@ -176,3 +205,29 @@ def test_cli_auto_rotate_flag(monkeypatch, tmp_path, argv, auto_rotate):
     monkeypatch.setattr("sys.argv", ["process_book", "--book-dir", str(tmp_path), "--device", "cpu", *argv])
     process_book.main()
     assert seen["x"].auto_rotate is auto_rotate
+
+
+def test_extractor_default_route_matches_jax():
+    """Both extractors with their defaults (heuristic backend; float32
+    engines on one canvas, otherwise in their default configuration: host
+    rectification, greedy decode) on the quarter-turned cover: preprocessed
+    to 1050x1312 it is camera-shaped, so both take the rotations, re-read
+    the winner's low-confidence boxes from the full-resolution image with
+    the device beam, and re-read ISBN suspects. The same metadata JSON,
+    ``_processing_info`` aside."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BB_OCR_COMPILE_CACHE", "0")  # no compilation cache under HOME
+        jax_engine = JaxOCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, config=JaxEngineConfig(
+            canvases=(JaxCanvasSpec(*CANVAS),), compute_dtype=jnp.float32, host_rectify=True,
+            wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
+        ))
+    port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
+        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32, host_rectify=True, decoder="greedy",
+    ), device="cpu")
+    rgb = np.ascontiguousarray(np.rot90(load_rgb(BOOK1), 1))
+    ref = JaxExtractor(llm_backend="heuristic", engine=jax_engine).extract_metadata_from_images([rgb], ocr_image_indices=[0])
+    got = BookMetadataExtractor(llm_backend="heuristic", engine=port, device="cpu").extract_metadata_from_images(
+        [rgb], ocr_image_indices=[0])
+    ref.pop("_processing_info")
+    got.pop("_processing_info")
+    assert got == ref

@@ -4,24 +4,27 @@
   canvas) read through the port in float32 and in bfloat16, held to the
   JAX package's recorded readings (``tests/data/book1_jax_f32.json`` and
   ``book1_jax_bf16.json``, written by ``scripts/torch_port_reference.py``).
-- The metadata JSON of both extractors on the five covers of
-  ``data/real/covers/`` (heuristic backend, float32 engines, rotations,
-  re-reads and the fast path off, one 640x480 canvas).
+- The metadata JSON of the port's extractor on the five covers of
+  ``data/real/covers/`` (heuristic backend, float32 engine, one 640x480
+  canvas) against the JAX extractor's, recorded by
+  ``scripts/torch_port_reference.py``: with rotations, re-reads and the
+  fast path off and device warps (``covers_jax_f32_640x480.json``,
+  ``--covers``), and on the default route, with host rectification
+  (``default_route_jax_f32_640x480.json``, ``--default-route --canvas
+  640x480``): rotations for ``book1``, ``book5`` and ``book6``, the fast
+  path for ``book2`` and ``book4``, then both re-reads. The live
+  comparisons of the extractor against the JAX one are in
+  ``tests/test_torch_orient.py``.
 """
 
 import glob
 import json
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from bbocr_tpu.extract.extractor import BookMetadataExtractor as JaxExtractor
-from bbocr_tpu.runtime.bucketing import CanvasSpec as JaxCanvasSpec
-from bbocr_tpu.runtime.engine import EngineConfig as JaxEngineConfig
-from bbocr_tpu.runtime.engine import OCREngine as JaxOCREngine
 from bbocr_tpu_torch.extract import BookMetadataExtractor
 from bbocr_tpu_torch.io import load_rgb
 from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
@@ -36,6 +39,7 @@ CRNN_NPZ = os.path.join(ROOT, "checkpoints", "crnn.npz")
 BOOK1 = os.path.join(ROOT, "data", "real", "covers", "book1.png")
 COVERS = sorted(glob.glob(os.path.join(ROOT, "data", "real", "covers", "*.png")))
 CANVAS = (640, 480)
+DATA = os.path.join(ROOT, "tests", "data")
 
 
 @pytest.mark.parametrize(
@@ -56,7 +60,8 @@ def test_book1_full_size_matches_jax_reading(dtype, reference, boxes, quad_px):
         ref = json.load(f)
     pre = preprocess_for_book_cover(load_rgb(BOOK1), device="cpu")[0].numpy()
     assert pre.shape == (1312, 1050)
-    engine = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(compute_dtype=dtype), device="cpu")
+    engine = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
+        compute_dtype=dtype, host_rectify=False, decoder="greedy"), device="cpu")
     got = engine.readtext(pre)
     assert len(got) == len(ref["texts"]) == boxes
     assert [t for _, t, _ in got] == ref["texts"]
@@ -64,29 +69,52 @@ def test_book1_full_size_matches_jax_reading(dtype, reference, boxes, quad_px):
         assert np.abs(np.asarray(q) - np.asarray(rq)).max() <= quad_px
 
 
-@pytest.fixture(scope="module")
-def extractors():
-    knobs = dict(llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False,
-                 fast_single=False, warm_model=False)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("BB_OCR_COMPILE_CACHE", "0")  # no compilation cache under HOME
-        jax_engine = JaxOCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, config=JaxEngineConfig(
-            canvases=(JaxCanvasSpec(*CANVAS),), compute_dtype=jnp.float32, host_rectify=False,
-            wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0,
-        ))
-    port = OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
-        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32,
+def _engine(host_rectify: bool) -> OCREngine:
+    return OCREngine.from_checkpoint(CRAFT_NPZ, CRNN_NPZ, EngineConfig(
+        canvases=(CanvasSpec(*CANVAS),), compute_dtype=torch.float32, host_rectify=host_rectify, decoder="greedy",
     ), device="cpu")
-    return JaxExtractor(engine=jax_engine, **knobs), BookMetadataExtractor(engine=port, device="cpu", **knobs)
+
+
+@pytest.fixture(scope="module")
+def covers_reference():
+    with open(os.path.join(DATA, "covers_jax_f32_640x480.json")) as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module")
+def default_route_reference():
+    with open(os.path.join(DATA, "default_route_jax_f32_640x480.json")) as f:
+        return json.load(f)
+
+
+def _meta(extractor, path):
+    got = extractor.extract_metadata_from_images([path], ocr_image_indices=[0])
+    got.pop("_processing_info")
+    return got
 
 
 @pytest.mark.parametrize("path", COVERS, ids=[os.path.basename(p) for p in COVERS])
-def test_cover_metadata_matches_jax_extractor(extractors, path):
+def test_cover_metadata_matches_jax_extractor(covers_reference, path):
     """The same metadata JSON, ``_processing_info`` aside (it names the
     engine, and the port adds ``ocr_boxes``)."""
-    jax_extractor, port = extractors
-    ref = jax_extractor.extract_metadata_from_images([path], ocr_image_indices=[0])
-    got = port.extract_metadata_from_images([path], ocr_image_indices=[0])
-    ref.pop("_processing_info")
-    got.pop("_processing_info")
-    assert got == ref
+    port = BookMetadataExtractor(
+        engine=_engine(host_rectify=False), device="cpu", llm_backend="heuristic", auto_rotate=False,
+        reread_low_conf=False, isbn_reread=False, fast_single=False, warm_model=False,
+    )
+    ref = covers_reference["photos"][os.path.relpath(path, ROOT)]["meta"]
+    assert _meta(port, path) == ref
+
+
+@pytest.mark.parametrize("path", COVERS, ids=[os.path.basename(p) for p in COVERS])
+def test_cover_default_route_matches_jax_extractor(default_route_reference, path):
+    """``BookMetadataExtractor(llm_backend="heuristic")`` with no other
+    knob: the same metadata JSON as the JAX extractor's default route, and
+    the same route (rotations or the fast path)."""
+    ref = default_route_reference["photos"][os.path.relpath(path, ROOT)]
+    engine = _engine(host_rectify=True)
+    reads = []
+    readtext, readtext_fast = engine.readtext, engine.readtext_fast
+    engine.readtext = lambda image: reads.append("readtext") or readtext(image)
+    engine.readtext_fast = lambda image: reads.append("fast") or readtext_fast(image)
+    assert _meta(BookMetadataExtractor(llm_backend="heuristic", engine=engine, device="cpu"), path) == ref["meta"]
+    assert reads == (["readtext"] * 4 if ref["route"] == "rotations" else ["fast"])
