@@ -6,9 +6,14 @@ save ``book_<id>_enhanced.json`` and print a summary.
     python -m bbocr_tpu_torch.cli.process_book --book-dir path/to/book --device cpu
 
 The extractor runs with the JAX CLI's defaults: the rotation search only
-with ``--auto-rotate`` (off by default, as in the JAX CLI), the fast path
-for upright photos under 1200 px, and the low-confidence and ISBN re-reads.
-Only the heuristic backend is ported.
+with ``--auto-rotate`` (off by default, as in the JAX CLI), the auto-crop
+to the text region only with ``--crop-ocr`` (margin ``--crop-margin``,
+default 16 px), and the process-wide shared engine wrapped in
+``BatchingOCR`` (unless ``BB_OCR_BATCHING=0``), which reads each photo with
+``readtext``: no fast path and no re-reads, as with the JAX CLI. With
+``BB_OCR_BATCHING=0`` the engine is unwrapped, so upright photos under
+1200 px take the fast path and every reading gets the low-confidence and
+ISBN re-reads. Only the heuristic backend is ported.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ def find_books_dir(explicit: Optional[str] = None) -> Optional[str]:
 
 def make_extractor(
     device="cuda", use_preprocessing: bool = True, edge_crop_percent: float = 0.0, auto_rotate=False,
+    crop_for_ocr: bool = False, crop_margin: int = 16,
 ) -> BookMetadataExtractor:
     """``BookMetadataExtractor`` on the heuristic backend with the JAX
     CLI's defaults. ``auto_rotate``: True, False, or None to decide per
@@ -41,6 +47,8 @@ def make_extractor(
     return BookMetadataExtractor(
         llm_backend="heuristic",
         use_preprocessing=use_preprocessing,
+        crop_for_ocr=crop_for_ocr,
+        crop_margin=crop_margin,
         edge_crop_percent=edge_crop_percent,
         auto_rotate=auto_rotate,
         warm_model=False,
@@ -75,6 +83,8 @@ def main():
     p.add_argument("--books-dir", help="root directory holding book subdirs")
     p.add_argument("--llm-backend", default="heuristic", choices=["heuristic"])
     p.add_argument("--no-preprocessing", action="store_true")
+    p.add_argument("--crop-ocr", action="store_true", help="crop each OCR'd photo to its text region")
+    p.add_argument("--crop-margin", type=int, default=16)
     p.add_argument("--edge-crop", type=float, default=0.0)
     p.add_argument("--auto-rotate", action="store_true",
                    help="read each photo at the four right-angle rotations and keep the best")
@@ -94,7 +104,9 @@ def main():
         book_dir = os.path.join(root, args.book_id)
     if not os.path.isdir(book_dir):
         p.error(f"not a directory: {book_dir}")
-    extractor = make_extractor(args.device, not args.no_preprocessing, args.edge_crop, args.auto_rotate)
+    extractor = make_extractor(
+        args.device, not args.no_preprocessing, args.edge_crop, args.auto_rotate, args.crop_ocr, args.crop_margin,
+    )
     try:
         process_book(book_dir, extractor, output_dir=args.output_dir, ocr_indices=args.ocr_indices)
     except Exception as e:

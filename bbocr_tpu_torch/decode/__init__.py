@@ -3,6 +3,7 @@ from bbocr_tpu_torch.decode.boxes import (
     extract_boxes_masked,
     extract_boxes_masked_plain,
     group_lines,
+    merge_coarse_quads,
     sort_reading_order,
     split_multiline_quads,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "extract_boxes_masked",
     "extract_boxes_masked_plain",
     "group_lines",
+    "merge_coarse_quads",
     "sort_reading_order",
     "split_multiline_quads",
 ]

@@ -357,6 +357,59 @@ def split_multiline_quads(
     return out
 
 
+def merge_coarse_quads(
+    fine: List[np.ndarray],
+    coarse: List[np.ndarray],
+    giant_min_px: float = 96.0,
+    covered_thresh: float = 0.5,
+    absorb_thresh: float = 0.7,
+) -> List[np.ndarray]:
+    """Merge the quads of a coarse (pooled) detect pass into the fine ones.
+
+    Counterpart of ``bbocr_tpu/decode/boxes.py::merge_coarse_quads``. The
+    fine pass stays the source of truth; a coarse quad is added only when
+    it is giant (its shorter side at least ``giant_min_px`` canvas px) and
+    fine quads cover less than ``covered_thresh`` of its area. Fine quads
+    lying at least ``absorb_thresh`` inside an adopted coarse quad are
+    dropped as fragments of its glyphs. Overlaps are taken on axis-aligned
+    bounding boxes; all quads are in the same (canvas) coordinates.
+    """
+
+    def aabb(q: np.ndarray):
+        return float(q[:, 0].min()), float(q[:, 1].min()), float(q[:, 0].max()), float(q[:, 1].max())
+
+    def inter(a, b) -> float:
+        w = min(a[2], b[2]) - max(a[0], b[0])
+        h = min(a[3], b[3]) - max(a[1], b[1])
+        return max(0.0, w) * max(0.0, h)
+
+    def area(a) -> float:
+        return max(0.0, a[2] - a[0]) * max(0.0, a[3] - a[1])
+
+    fine_boxes = [aabb(q) for q in fine]
+    adopted: List[np.ndarray] = []
+    adopted_boxes = []
+    for cq in coarse:
+        cb = aabb(cq)
+        if min(cb[2] - cb[0], cb[3] - cb[1]) < giant_min_px:
+            continue
+        ca = area(cb)
+        if ca <= 0:
+            continue
+        if sum(inter(cb, fb) for fb in fine_boxes) / ca < covered_thresh:
+            adopted.append(cq)
+            adopted_boxes.append(cb)
+    if not adopted:
+        return list(fine)
+    out: List[np.ndarray] = []
+    for q, fb in zip(fine, fine_boxes):
+        fa = area(fb)
+        if not (fa > 0 and any(inter(fb, ab) / fa >= absorb_thresh for ab in adopted_boxes)):
+            out.append(q)
+    out.extend(adopted)
+    return out
+
+
 def group_lines(quads: List[np.ndarray]) -> List[List[int]]:
     """Cluster quads into text lines, top-to-bottom / left-to-right.
 

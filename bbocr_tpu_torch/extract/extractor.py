@@ -2,23 +2,30 @@
 
 Counterpart of ``bbocr_tpu/extract/extractor.py::BookMetadataExtractor`` on
 its heuristic branch: each OCR'd photo is preprocessed once on the device,
-read by the OCR engine, grouped into lines, and structured by the
-heuristics into metadata that passes the schema. No LLM client and no HTTP
-session exist here.
+optionally cropped to its text region (``crop_for_ocr``, the auto-crop of
+``preprocess/autocrop.py``), read by the OCR engine, grouped into lines,
+and structured by the heuristics into metadata that passes the schema. No
+LLM client and no HTTP session exist here.
 
-The OCR route is the JAX extractor's, with the same defaults: camera
+The OCR route is the JAX extractor's. With no ``engine`` argument the
+extractor takes the process-wide shared engine, as the JAX one does: an
+``OCREngine`` from ``BB_OCR_CKPT_DIR``, wrapped in
+``runtime/batching.BatchingOCR`` unless ``BB_OCR_BATCHING`` is false. The
+wrapper has neither the fast path nor the re-reads, so by default camera
 photos (long side of 1200 px or more, ``auto_rotate=None``) are read at the
-four right-angle rotations (``runtime/orient.py``), smaller upright ones
-through the single-dispatch fast path (``fast_single=None``); the chosen
-reading then gets the low-confidence full-resolution re-read
-(``reread_low_conf``) and the digit-biased ISBN re-read (``isbn_reread``).
-Photos over the OCR size limit are downscaled with Pillow's BILINEAR
-resample, reproduced in numpy (``ops.pil_bilinear_resize_u8``).
+four right-angle rotations (``runtime/orient.py``) and smaller ones with
+``readtext``. With an unwrapped engine (passed in, or
+``BB_OCR_BATCHING=0``) smaller upright photos take the single-dispatch
+fast path (``fast_single=None``), and the chosen reading gets the
+low-confidence full-resolution re-read (``reread_low_conf``) and the
+digit-biased ISBN re-read (``isbn_reread``). Photos over the OCR size limit
+are downscaled with Pillow's BILINEAR resample, reproduced in numpy
+(``ops.pil_bilinear_resize_u8``).
 
 Knobs whose modules are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md item: LLM backends, auto-crop and traces. Errors
-propagate: unlike the JAX extractor, a failed OCR call or re-read is not
-turned into empty text or a skipped re-read.
+naming their ROADMAP.md item: LLM backends and traces. Errors propagate:
+unlike the JAX extractor, a failed OCR call or re-read is not turned into
+empty text or a skipped re-read.
 """
 
 from __future__ import annotations
@@ -27,12 +34,14 @@ import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from bbocr_tpu_torch.extract.heuristics import heuristic_extract, heuristic_extract_lines
-from bbocr_tpu_torch.extract.schema import validate_schema
+from bbocr_tpu_torch.extract.schema import empty_metadata, validate_schema
 from bbocr_tpu_torch.io import load_rgb
 from bbocr_tpu_torch.ops import pil_bilinear_resize_u8
 from bbocr_tpu_torch.runtime.orient import read_with_rotations
+from bbocr_tpu_torch.utils.env import env_flag
 
 _IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".gif", ".bmp", ".tiff")
 _CKPT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "checkpoints")
@@ -50,6 +59,7 @@ class BookMetadataExtractor:
         model: str = "gemma3:4b",
         use_preprocessing: bool = True,
         crop_for_ocr: bool = False,
+        crop_margin: int = 128,
         warm_model: bool = True,
         edge_crop_percent: float = 0.0,
         max_ocr_chars_per_image: int = 330,
@@ -63,14 +73,16 @@ class BookMetadataExtractor:
     ):
         """Same knobs and defaults as the JAX extractor. ``warm_model`` only
         warms an Ollama model, so it does nothing on the heuristic backend.
-        ``device`` is where preprocessing and the default engine run."""
+        ``device`` is where preprocessing, the auto-crop's mask and the
+        shared engine run. ``BB_OCR_DEBUG_AUTOCROP`` set true skips the
+        auto-crop and returns an all-null stub after OCR, as in JAX."""
         self.llm_backend = (llm_backend or "ollama").lower()
         if self.llm_backend != "heuristic":
             raise _not_ported(f"llm_backend={self.llm_backend!r} (LLM backends)")
-        if crop_for_ocr:
-            raise _not_ported("crop_for_ocr=True (auto-crop)")
         self.model = model
         self.use_preprocessing = use_preprocessing
+        self.crop_for_ocr = crop_for_ocr
+        self.crop_margin = int(max(0, crop_margin))
         self.edge_crop_percent = float(max(0.0, min(45.0, edge_crop_percent)))
         self.max_ocr_chars_per_image = int(max(1, max_ocr_chars_per_image))
         self.isbn_reread = bool(isbn_reread)
@@ -79,19 +91,14 @@ class BookMetadataExtractor:
         self.fast_single = fast_single
         self.device = device
         self._engine = engine
+        self.debug_autocrop = env_flag("BB_OCR_DEBUG_AUTOCROP")
 
     @property
     def engine(self):
-        """The OCR engine, built on first use from ``BB_OCR_CKPT_DIR`` (default
-        the repository's ``checkpoints/``)."""
+        """The OCR engine: the one passed in, else the process-wide shared
+        engine of ``device``, built on first use."""
         if self._engine is None:
-            from bbocr_tpu_torch.runtime import OCREngine
-
-            ckpt_dir = os.getenv("BB_OCR_CKPT_DIR", _CKPT_DIR)
-            self._engine = OCREngine.from_checkpoint(
-                os.path.join(ckpt_dir, "craft.npz"), os.path.join(ckpt_dir, "crnn.npz"),
-                device=self.device,
-            )
+            self._engine = _shared_engine(self.device)
         return self._engine
 
     # ------------------------------------------------------------------
@@ -117,6 +124,14 @@ class BookMetadataExtractor:
                 x0, y0, x1, y1 = rect
                 current = current[y0:y1, x0:x1]
                 out["edge_cropped"] = current
+        if self.crop_for_ocr and not self.debug_autocrop:
+            from bbocr_tpu_torch.preprocess import auto_crop_text_region
+
+            rect = auto_crop_text_region(current, self.crop_margin, device=self.device)
+            if rect is not None:
+                x0, y0, x1, y1 = rect
+                current = current[y0:y1, x0:x1]
+                out["auto_cropped"] = current
         out["final"] = current
         return out
 
@@ -210,6 +225,17 @@ class BookMetadataExtractor:
             if text.strip() and len(text) <= self.max_ocr_chars_per_image:
                 ocr_texts.append(text)
 
+        if self.debug_autocrop:  # a stub without structuring, as in JAX
+            stub = empty_metadata()
+            stub["_processing_info"] = {
+                "ocr_engine": "torch",
+                "preprocessing_used": self.use_preprocessing,
+                "ocr_images_processed": len(ocr_texts),
+                "total_images": len(images),
+                "debug_autocrop": True,
+                "model_skipped": True,
+            }
+            return stub
         if ocr_line_infos:
             meta = heuristic_extract_lines(ocr_line_infos)
         else:
@@ -240,3 +266,34 @@ class BookMetadataExtractor:
             raise FileNotFoundError(f"No image files found in {book_dir}")
         return self.extract_metadata_from_images(paths, ocr_image_indices)
 
+
+
+# One engine per device and process, shared by every extractor (the
+# parameters are immutable), as the JAX package shares one per process.
+_ENGINE_CACHE: Dict[str, Any] = {}
+
+
+def _shared_engine(device="cuda"):
+    """The process-wide engine of ``device``: ``OCREngine.from_checkpoint``
+    on ``craft.npz`` and ``crnn.npz`` of ``BB_OCR_CKPT_DIR`` (default the
+    repository's ``checkpoints/``), wrapped in ``BatchingOCR`` unless
+    ``BB_OCR_BATCHING`` is false. Raises if a checkpoint is missing (the
+    JAX package then initialises untrained weights, which the port does not
+    port)."""
+    key = str(torch.device(device))
+    if key not in _ENGINE_CACHE:
+        from bbocr_tpu_torch.runtime import OCREngine
+
+        ckpt_dir = os.getenv("BB_OCR_CKPT_DIR", _CKPT_DIR)
+        paths = [os.path.join(ckpt_dir, name) for name in ("craft.npz", "crnn.npz")]
+        missing = [p for p in paths if not os.path.exists(p)]
+        if missing:
+            raise FileNotFoundError(f"OCR checkpoints not found: {missing} (set BB_OCR_CKPT_DIR)")
+        engine = OCREngine.from_checkpoint(*paths, device=device)
+        if env_flag("BB_OCR_BATCHING", default=True):
+            # coalesce concurrent requests into one device batch
+            from bbocr_tpu_torch.runtime.batching import BatchingOCR
+
+            engine = BatchingOCR(engine)
+        _ENGINE_CACHE[key] = engine
+    return _ENGINE_CACHE[key]

@@ -28,8 +28,9 @@ SOURCE = os.path.join(_HERE, "cc_labeling.cpp")
 BUILD_DIR = os.path.join(_HERE, "build")
 _FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-# Max quads per extraction call.
+# Max quads per extraction call, and components per labeling call.
 MAX_QUADS = 4096
+MAX_COMPONENTS = 8192
 
 _lock = threading.Lock()
 _lib = None
@@ -67,6 +68,11 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32 = ctypes.c_int32
+        lib.bbocr_label_components.restype = i32
+        lib.bbocr_label_components.argtypes = [
+            u8p, ctypes.POINTER(ctypes.c_float), i32, i32, i32,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_double), i32,
+        ]
         lib.bbocr_extract_quads_masked.restype = i32
         lib.bbocr_extract_quads_masked.argtypes = [
             u8p, u8p, i32, i32, ctypes.c_float, i32, ctypes.POINTER(ctypes.c_double), i32,
@@ -93,6 +99,28 @@ def extract_quads_masked_native(
         quads.ctypes.data_as(ctypes.POINTER(ctypes.c_double)), MAX_QUADS,
     )
     return quads[:n].copy()
+
+
+def connected_components(mask: np.ndarray, score: np.ndarray | None = None, connectivity: int = 8):
+    """Label a binary mask in one C++ call: (labels int32 HxW, stats (N, 11)
+    float64) with stats columns x0, y0, x1, y1 (inclusive bbox), count,
+    sum_x, sum_y, sum_xx, sum_yy, sum_xy, max_score. Counterpart of
+    ``bbocr_tpu/native/loader.py::connected_components``; at most
+    ``MAX_COMPONENTS`` components, as there."""
+    mask = np.ascontiguousarray(mask != 0, np.uint8)
+    h, w = mask.shape
+    labels = np.empty((h, w), np.int32)
+    stats = np.zeros((MAX_COMPONENTS, 11), np.float64)
+    score_arr = None if score is None else np.ascontiguousarray(score, np.float32)
+    n = load().bbocr_label_components(
+        mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        None if score_arr is None else score_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        h, w, int(connectivity),
+        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        stats.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        MAX_COMPONENTS,
+    )
+    return labels, stats[:n].copy()
 
 
 def connected_components_numpy(mask: np.ndarray, score: np.ndarray | None = None, connectivity: int = 8):

@@ -135,3 +135,25 @@ def unsharp_mask(
     adj = torch.sign(scaled) * torch.floor(torch.abs(scaled) / 100.0)
     out = torch.where(torch.abs(diff) >= threshold, src + adj, src)
     return quantize_u8(out)
+
+
+def box_blur(img: torch.Tensor, ksize: int, border: str = "replicate", normalize: bool = True) -> torch.Tensor:
+    """cv2.boxFilter/blur on the last two axes (no quantization).
+    Counterpart of ``bbocr_tpu/ops/filters.py::box_blur``."""
+    w = np.ones(ksize, np.float64)
+    if normalize:
+        w /= ksize
+    return separable_filter2d(img, w, w, border)
+
+
+def sobel_magnitude_u8(img: torch.Tensor) -> torch.Tensor:
+    """|Sobel_x| + |Sobel_y| with per-term uint8 saturation: cv2.Sobel
+    CV_16S ksize 3 in x and y, convertScaleAbs each, then addWeighted(1, 1).
+    Counterpart of ``bbocr_tpu/ops/filters.py::sobel_magnitude_u8``."""
+    smooth = (1.0, 2.0, 1.0)
+    deriv = (-1.0, 0.0, 1.0)
+    gx = separable_filter2d(img, smooth, deriv, border="reflect101")
+    gy = separable_filter2d(img, deriv, smooth, border="reflect101")
+    ax = torch.clamp(torch.round(torch.abs(gx)), 0, 255)
+    ay = torch.clamp(torch.round(torch.abs(gy)), 0, 255)
+    return torch.clamp(torch.round(ax + ay), 0, 255)

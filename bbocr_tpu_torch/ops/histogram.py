@@ -1,6 +1,7 @@
-"""CLAHE (cv2.createCLAHE(clip_limit, tiles).apply) on tensors.
+"""Histogram ops on tensors: CLAHE (cv2.createCLAHE(clip_limit,
+tiles).apply), global equalization and Otsu thresholds.
 
-Counterpart of ``bbocr_tpu/ops/histogram.py::clahe``, holding its results
+Counterpart of ``bbocr_tpu/ops/histogram.py``. CLAHE holds its results
 bit for bit. The tile histograms, clipping, residual redistribution and
 LUTs are integer arithmetic. The bilinear blend of the four neighbouring
 tile LUTs repeats the reference's float32 arithmetic: the image is cut
@@ -98,3 +99,100 @@ def clahe(img: torch.Tensor, clip_limit: float = 2.0, tile_grid: tuple = (8, 8))
     flat = img.reshape((-1,) + img.shape[-2:])
     out = _clahe_batched(flat, clip_limit, ty, tx)
     return out.reshape(img.shape[:-2] + out.shape[-2:])
+
+
+def _as_u8_int(img: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(img), 0, 255).to(torch.int64)
+
+
+def _hist256(vals: torch.Tensor) -> torch.Tensor:
+    """256-bin histogram of an integer tensor (any shape), float32 counts."""
+    return torch.bincount(vals.reshape(-1), minlength=256).to(torch.float32)
+
+
+def _cumsum256(x: torch.Tensor) -> torch.Tensor:
+    """Float32 prefix sum of 256 values in the order XLA's CPU backend sums
+    ``jnp.cumsum``: sequential prefix sums within 16 blocks of 16, then
+    each block offset by the sequential sum of the earlier blocks' totals."""
+    blocks = x.reshape(16, 16)
+    acc = torch.zeros(16, dtype=x.dtype, device=x.device)
+    cols = []
+    for j in range(16):
+        acc = acc + blocks[:, j]
+        cols.append(acc)
+    inner = torch.stack(cols, dim=1)
+    offset = torch.zeros((), dtype=x.dtype, device=x.device)
+    offsets = []
+    for b in range(16):
+        offsets.append(offset)
+        offset = offset + inner[b, 15]
+    return (inner + torch.stack(offsets)[:, None]).reshape(256)
+
+
+def _batched(fn):
+    """Lift a (H, W) -> (H, W) op to arbitrary leading batch dims."""
+
+    def wrapped(img, *args, **kwargs):
+        if img.ndim == 2:
+            return fn(img, *args, **kwargs)
+        flat = img.reshape((-1,) + img.shape[-2:])
+        out = torch.stack([fn(x, *args, **kwargs) for x in flat])
+        return out.reshape(img.shape[:-2] + out.shape[-2:])
+
+    return wrapped
+
+
+def _equalize_hist_2d(img: torch.Tensor) -> torch.Tensor:
+    vals = _as_u8_int(img)
+    hist = _hist256(vals)
+    total = torch.tensor(float(img.shape[-1] * img.shape[-2]), dtype=torch.float32, device=img.device)
+    i0 = int(torch.argmax((hist > 0).to(torch.uint8)))  # the first non-empty bin
+    denom = total - hist[i0]
+    cdf = _cumsum256(hist)
+    # lut[i] = round(255 / (N - hist[i0]) * (cdf[i] - cdf[i0])), lut[i0] = 0
+    # a tensor numerator: `255.0 / t` would multiply by the reciprocal
+    scale = torch.where(denom > 0, torch.full_like(denom, 255.0) / torch.clamp(denom, min=1.0), 0.0)
+    lut = torch.clamp(torch.round(scale * (cdf - cdf[i0])), 0, 255)
+    return lut[vals]
+
+
+def equalize_hist(img: torch.Tensor) -> torch.Tensor:
+    """cv2.equalizeHist on (..., H, W). Counterpart of
+    ``bbocr_tpu/ops/histogram.py::equalize_hist``."""
+    return _batched(_equalize_hist_2d)(img)
+
+
+_FLT_EPSILON = 1.1920929e-07  # cv2's validity check
+
+
+def otsu_threshold_value(img: torch.Tensor) -> torch.Tensor:
+    """Scalar Otsu threshold of a (H, W) image (cv2.getThreshVal_Otsu), the
+    first maximum of the between-class variance. Counterpart of
+    ``bbocr_tpu/ops/histogram.py::otsu_threshold_value``, in float32."""
+    hist = _hist256(_as_u8_int(img))
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python scalar
+    p = hist / torch.full_like(hist[:1], float(img.shape[-1] * img.shape[-2]))
+    bins = torch.arange(256, dtype=torch.float32, device=img.device)
+    q1 = _cumsum256(p)
+    mu_total = torch.sum(p * bins)
+    mu1_num = _cumsum256(p * bins)
+    valid = torch.minimum(q1, 1.0 - q1) >= _FLT_EPSILON
+    mu1 = mu1_num / torch.clamp(q1, min=_FLT_EPSILON)
+    mu2 = (mu_total - mu1_num) / torch.clamp(1.0 - q1, min=_FLT_EPSILON)
+    sigma = q1 * (1.0 - q1) * (mu1 - mu2) ** 2
+    sigma = torch.where(valid, sigma, float("-inf"))
+    return torch.argmax(sigma).to(torch.float32)
+
+
+def _otsu_threshold_2d(img: torch.Tensor, maxval: float, inverse: bool) -> torch.Tensor:
+    t = otsu_threshold_value(img)
+    mask = torch.clamp(torch.round(img), 0, 255) > t
+    if inverse:
+        mask = ~mask
+    return torch.where(mask, maxval, 0.0).to(torch.float32)
+
+
+def otsu_threshold(img: torch.Tensor, maxval: float = 255.0, inverse: bool = False) -> torch.Tensor:
+    """cv2.threshold(..., THRESH_BINARY[_INV] + THRESH_OTSU) on (..., H, W).
+    Counterpart of ``bbocr_tpu/ops/histogram.py::otsu_threshold``."""
+    return _batched(_otsu_threshold_2d)(img, maxval, inverse)

@@ -1,9 +1,9 @@
-"""Resize as two matrix products, cv2 INTER_CUBIC parity; and Pillow's
-BILINEAR resample of a uint8 image, in numpy.
+"""Resize as two matrix products, cv2 INTER_CUBIC and INTER_LINEAR parity;
+and Pillow's BILINEAR resample of a uint8 image, in numpy.
 
 Counterpart of ``bbocr_tpu/ops/resize.py``: ``out = W_rows @ img @ W_cols^T``
 with the (n_out, n_in) resampling matrices built in numpy (half-pixel
-centers, cubic a = -0.75, edge clamping). The products are plain
+centers, cubic a = -0.75 or linear, edge clamping). The products are plain
 ``torch.matmul`` calls outside any kernel; in float32 they must not run in
 TF32, which would cost the uint8 parity. ``pil_bilinear_resize_u8`` is the
 extractor's downscale of photos over its size limit (host work, as the
@@ -36,32 +36,49 @@ def _cubic_weights(f: np.ndarray, a: float = -0.75) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def _resample_matrix(n_out: int, n_in: int) -> np.ndarray:
-    """(n_out, n_in) cubic resampling matrix, cv2 half-pixel-center mapping."""
+def _resample_matrix(n_out: int, n_in: int, kind: str = "cubic") -> np.ndarray:
+    """(n_out, n_in) cubic or linear resampling matrix, cv2 half-pixel-center
+    mapping."""
     scale = n_in / n_out
     x = (np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5
     ix = np.floor(x).astype(np.int64)
-    w = _cubic_weights(x - ix)
+    f = x - ix
+    if kind == "cubic":
+        w, taps = _cubic_weights(f), (-1, 0, 1, 2)
+    elif kind == "linear":
+        w, taps = np.stack([1.0 - f, f], axis=1), (0, 1)
+    else:
+        raise ValueError(f"unknown resize kind: {kind}")
     mat = np.zeros((n_out, n_in), np.float32)
     rows = np.arange(n_out)
-    for t_idx, t in enumerate((-1, 0, 1, 2)):
+    for t_idx, t in enumerate(taps):
         src = np.clip(ix + t, 0, n_in - 1)
         np.add.at(mat, (rows, src), w[:, t_idx].astype(np.float32))
     return mat
 
 
-def resize_bicubic(img: torch.Tensor, out_h: int, out_w: int, quantize: bool = True) -> torch.Tensor:
-    """cv2.resize INTER_CUBIC on the last two axes of a grayscale image."""
+def _resize2d(img: torch.Tensor, out_h: int, out_w: int, kind: str, quantize: bool) -> torch.Tensor:
     if img.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "resize needs full float32 products: set "
             "torch.backends.cuda.matmul.allow_tf32 = False"
         )
     h, w = img.shape[-2], img.shape[-1]
-    wr = torch.from_numpy(_resample_matrix(out_h, h)).to(img.device)
-    wc = torch.from_numpy(_resample_matrix(out_w, w)).to(img.device)
+    wr = torch.from_numpy(_resample_matrix(out_h, h, kind)).to(img.device)
+    wc = torch.from_numpy(_resample_matrix(out_w, w, kind)).to(img.device)
     out = torch.matmul(torch.matmul(wr, img), wc.T)
     return quantize_u8(out) if quantize else out
+
+
+def resize_bicubic(img: torch.Tensor, out_h: int, out_w: int, quantize: bool = True) -> torch.Tensor:
+    """cv2.resize INTER_CUBIC on the last two axes of a grayscale image."""
+    return _resize2d(img, out_h, out_w, "cubic", quantize)
+
+
+def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int, quantize: bool = False) -> torch.Tensor:
+    """cv2.resize INTER_LINEAR (upscaling case) on the last two axes.
+    Counterpart of ``bbocr_tpu/ops/resize.py::resize_bilinear``."""
+    return _resize2d(img, out_h, out_w, "linear", quantize)
 
 
 # Pillow's Resample.c: fixed-point coefficients for 8-bit images.

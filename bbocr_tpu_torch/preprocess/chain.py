@@ -70,3 +70,17 @@ def preprocess_for_book_cover(img, scale: float = 1.5, device="cuda") -> Tuple[t
     ``preprocessed`` is an (int(H*scale), int(W*scale)) float32 tensor on
     ``device``."""
     return _preprocess(img, scale, device, KERNEL_OPS), list(BOOK_COVER_STEPS)
+
+
+def preprocess_for_book_cover_batch(imgs, scale: float = 1.5, device="cuda") -> torch.Tensor:
+    """Batched chain over (B, H, W) gray or (B, H, W, 3) RGB in [0,255], a
+    numpy array or a tensor -> (B, int(H*scale), int(W*scale)) float32 on
+    ``device``; each kernel runs once over the batch. Counterpart of
+    ``bbocr_tpu/preprocess/chain.py::preprocess_for_book_cover_batch``."""
+    if not torch.is_tensor(imgs):
+        imgs = torch.from_numpy(np.array(imgs, dtype=np.float32))
+    arr = imgs.to(device=device, dtype=torch.float32)
+    h, w = arr.shape[1], arr.shape[2]
+    if arr.ndim == 4:
+        arr = rgb_to_grayscale(arr)
+    return _chain_gray(arr, int(h * scale), int(w * scale))

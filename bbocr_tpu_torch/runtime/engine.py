@@ -3,9 +3,13 @@
 Counterpart of ``bbocr_tpu/runtime/engine.py::OCREngine`` on one device:
 
 - letterbox each photo onto a canvas from the menu (host, uint8, cv2's
-  fixed-point bilinear resize);
-- detect: CRAFT with the folded gray stem, thresholds applied on the
-  device, two uint8 planes downloaded per canvas;
+  fixed-point bilinear resize), uploaded as uint8 or, with ``wire_bits``
+  below 8, dithered and bit-packed (``runtime/wire.py``) and unpacked on
+  the device;
+- detect: CRAFT with the folded gray stem (or the unfolded RGB stem),
+  optionally on an average-pooled canvas (``detect_pool``) and with a
+  second, coarse pass over the same canvas (``detect_coarse``), thresholds
+  applied on the device, two uint8 planes downloaded per canvas;
 - boxes: the C++ labeler on the host, then the multi-line split;
 - rectify: by default on the host, each crop warped from the original
   gray photo (``runtime/wire.py``, the C++ warp) and uploaded as uint8;
@@ -15,17 +19,19 @@ Counterpart of ``bbocr_tpu/runtime/engine.py::OCREngine`` on one device:
   contrast-stretch retry for low-confidence crops;
 - collect in reading order, back in image coordinates.
 
-Besides ``readtext``: the single-dispatch fast path (``readtext_fast``,
-``runtime/fastpath.py``) and the full-resolution re-reads
-(``lines_logits``, ``reread_low_conf`` with the device beam,
-``reread_isbn`` with the digit-biased host beam). Options of the JAX
-engine whose modules are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md item.
+Besides ``readtext``: the three-stage pipeline over a stream of batches
+(``readtext_stream``), the single-dispatch fast path (``readtext_fast``,
+``runtime/fastpath.py``), the full-resolution re-reads (``lines_logits``,
+``reread_low_conf`` with the device beam, ``reread_isbn`` with the
+digit-biased host beam), ``warmup`` and the text helpers ``read_joined``
+and ``read_lines``. Checkpoints of layouts that are not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import os
+import queue
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -37,6 +43,8 @@ from bbocr_tpu_torch.decode import (
     DetectionParams,
     ctc_greedy_decode,
     extract_boxes_masked,
+    group_lines,
+    merge_coarse_quads,
     sort_reading_order,
     split_multiline_quads,
 )
@@ -52,12 +60,13 @@ from bbocr_tpu_torch.models import (
     crnn_state_dict,
     fold_gray_stem,
 )
+from bbocr_tpu_torch.models.craft import IMAGENET_MEAN, IMAGENET_STD
 from bbocr_tpu_torch.models.crnn import INPUT_HEIGHT
 from bbocr_tpu_torch.runtime import bucketing
 from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
 from bbocr_tpu_torch.runtime.fastpath import fast_readtext_program
 from bbocr_tpu_torch.runtime.rectify import quad_to_rect_homography, warp_crops
-from bbocr_tpu_torch.runtime.wire import host_warp_crop
+from bbocr_tpu_torch.runtime.wire import host_warp_crop, pack_canvas, unpack_widen
 from bbocr_tpu_torch.utils.checkpoint import load_params
 from bbocr_tpu_torch.utils.profiling import StageTimer
 
@@ -66,6 +75,8 @@ _INV_127_5 = float(np.float32(1.0 / 127.5))
 # Photos per detect batch; a batch's row count is padded to this menu.
 _CHUNK = 8
 _ROW_MENU = (1, 2, 4, _CHUNK)
+
+_STREAM_END = object()
 
 
 @dataclass(frozen=True)
@@ -87,23 +98,31 @@ class EngineConfig:
     # Requests of fewer images than this merge all width buckets into the
     # widest one needed.
     merge_buckets_below: int = 2
+    # Fold gray->RGB, /255 and the ImageNet normalization into CRAFT's first
+    # conv (models.weights.fold_gray_stem); False runs the RGB stem.
+    fold_gray_stem: bool = True
+    # Average-pool factor applied on the device to canvases of at least
+    # detect_pool_min_area pixels before CRAFT (1 = off); crops are still
+    # rectified from the full canvas.
+    detect_pool: int = 1
+    detect_pool_min_area: int = 1408 * 1024
+    # The knobs below are read from the environment when the config is
+    # constructed, not when this module is imported.
+    # Canvas upload bit depth (8, 4, 2 or 1): below 8 the canvas ships
+    # dithered and bit-packed and is unpacked on the device (runtime/wire.py).
+    wire_bits: int = field(default_factory=lambda: int(os.environ.get("BB_OCR_WIRE_BITS", "8")))
     # CTC decoder of the recognize program: "greedy", or "beam" (the device
     # prefix beam, decode/beam_device.py; confidence exp(prefix log-prob)).
-    # Read from the environment when the config is constructed.
     decoder: str = field(default_factory=lambda: os.environ.get("BB_OCR_DECODER", "greedy"))
+    # Pool factor of an additional coarse detect pass over the same canvas
+    # (0 or 1 = off); its giant quads are merged in where the fine pass has
+    # no answer (decode/boxes.py::merge_coarse_quads).
+    detect_coarse: int = field(default_factory=lambda: int(os.environ.get("BB_OCR_DETECT_COARSE", "0")))
     # Warp recognition crops on the host from the original photo (True, as
     # in the JAX engine), or on the device from the letterboxed canvas.
     host_rectify: bool = field(
         default_factory=lambda: os.environ.get("BB_OCR_HOST_RECTIFY", "1").lower() not in ("0", "", "false")
     )
-    # Not ported yet: only 8-bit canvases run.
-    wire_bits: int = 8
-
-
-def _check_ported(config: EngineConfig) -> None:
-    if config.wire_bits != 8:
-        raise NotImplementedError(
-            "wire_bits<8 (wire packing, runtime/wire.py) is not ported yet: see ROADMAP.md Queue 1")
 
 
 class OCREngine:
@@ -119,7 +138,8 @@ class OCREngine:
     ):
         self.config = config if config is not None else EngineConfig()
         config = self.config
-        _check_ported(config)
+        if config.wire_bits not in (1, 2, 4, 8):
+            raise ValueError(f"wire_bits must be 1, 2, 4, or 8 (got {config.wire_bits})")
         tree = craft_params.get("params", {})
         if "slice1" in tree or "LiteBackbone_0" in tree:
             raise NotImplementedError(
@@ -128,14 +148,20 @@ class OCREngine:
         self.device = torch.device(device)
         self.charset = charset
         dtype = config.compute_dtype
-        # The detector takes the raw gray canvas: gray->RGB, /255 and the
-        # ImageNet normalization are folded into its first conv.
-        self.craft = CRAFT(gray_input=True)
-        self.craft.load_state_dict(craft_state_dict(fold_gray_stem(craft_params)), strict=True)
+        # With the folded stem the detector takes the raw gray canvas: gray->RGB,
+        # /255 and the ImageNet normalization are folded into its first conv.
+        self.craft = CRAFT(gray_input=config.fold_gray_stem)
+        stem_params = fold_gray_stem(craft_params) if config.fold_gray_stem else craft_params
+        self.craft.load_state_dict(craft_state_dict(stem_params), strict=True)
         cast_for_compute(self.craft.to(self.device), dtype).eval()
         self.crnn = CRNN(num_classes=charset.num_classes)
         self.crnn.load_state_dict(crnn_state_dict(crnn_params), strict=True)
         cast_for_compute(self.crnn.to(self.device), dtype).eval()
+        # tensor operands: CUDA divides by a Python number as a multiply by
+        # its reciprocal, which is not the JAX engine's division
+        self._255 = torch.tensor(255.0, device=self.device)
+        self._mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=self.device)[:, None, None]
+        self._std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=self.device)[:, None, None]
         self._lock = threading.Lock()
         self.timers = StageTimer()
 
@@ -158,11 +184,25 @@ class OCREngine:
     # Device programs
     # ------------------------------------------------------------------
 
+    def craft_input(self, gray255: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) float gray canvas in [0, 255] -> CRAFT's input in the
+        compute type: the gray plane for the folded stem, else gray repeated
+        to RGB, divided by 255 and ImageNet-normalized."""
+        x = gray255[:, None]
+        if not self.config.fold_gray_stem:
+            x = (x.expand(-1, 3, -1, -1) / self._255 - self._mean) / self._std
+        return x.to(self.config.compute_dtype)
+
     @torch.no_grad()
-    def detect(self, gray255: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def detect(self, gray255: torch.Tensor, pool: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, H, W) float gray canvas in [0, 255] -> (mask u8, region u8),
-        each (B, H/2, W/2), thresholded and quantized on the device."""
-        maps = self.craft(gray255[:, None].to(self.config.compute_dtype))
+        each (B, H/2p, W/2p), thresholded and quantized on the device.
+        ``pool`` average-pools the canvas first (a mean of at most 16 uint8
+        values over a power of two, exact in float32)."""
+        if pool > 1:
+            b, h, w = gray255.shape
+            gray255 = gray255.reshape(b, h // pool, pool, w // pool, pool).mean((2, 4))
+        maps = self.craft(self.craft_input(gray255))
         region, affinity = maps[:, 0], maps[:, 1]
         det = self.config.detection
         mask = (region > det.low_text) | (affinity > det.link_threshold)
@@ -220,10 +260,114 @@ class OCREngine:
             self._stage_boxes_recognize(ctx)
             return self._stage_collect(ctx)
 
+    def readtext_stream(self, batches, depth: int = 2):
+        """Pipelined serving over an iterable of image lists; yields each
+        batch's results in order, equal to :meth:`readtext_batch` on it.
+
+        Three stages run on separate host threads so that consecutive
+        batches overlap: while batch k is in host box extraction and crop
+        dispatch, or in text decoding, batch k+1's letterbox and detect are
+        issued. All stages issue their device work on the current CUDA
+        stream. ``depth`` bounds the batches in flight (each holds its
+        canvases on the device until its crops are dispatched); an empty
+        batch yields ``[]``; an error in a stage is raised in the consumer
+        after the batches done before it.
+
+        A consumer that stops early (``close()``, an exception) stops the
+        stages: detect takes no further batch, the middle stage lets the
+        rest pass undone, and the consumer drains only the output queue, so
+        that each stage's end marker reaches the stage that waits for it.
+        (The JAX engine's stream drains both queues and can take the detect
+        stage's end marker from the middle stage, which then waits forever.)
+        """
+        with self._lock:
+            q_mid: Any = queue.Queue(maxsize=depth)
+            q_out: Any = queue.Queue(maxsize=depth)
+            err: List[BaseException] = []
+            stop = threading.Event()
+
+            def t_detect():
+                try:
+                    for imgs in batches:
+                        if stop.is_set():
+                            break
+                        q_mid.put(self._stage_detect(imgs) if imgs else None)
+                except BaseException as e:  # raised in the consumer
+                    err.append(e)
+                finally:
+                    q_mid.put(_STREAM_END)
+
+            def t_mid():
+                try:
+                    while True:
+                        ctx = q_mid.get()
+                        if ctx is _STREAM_END:
+                            break
+                        if stop.is_set():
+                            continue  # stopped: let the detect stage run out
+                        try:
+                            if ctx is not None:
+                                self._stage_boxes_recognize(ctx)
+                        except BaseException as e:
+                            err.append(e)
+                            stop.set()
+                            continue
+                        q_out.put(ctx)
+                finally:
+                    q_out.put(_STREAM_END)
+
+            threads = [threading.Thread(target=t_detect, daemon=True), threading.Thread(target=t_mid, daemon=True)]
+            for t in threads:
+                t.start()
+            try:
+                while True:
+                    ctx = q_out.get()
+                    if ctx is _STREAM_END:
+                        break
+                    yield [] if ctx is None else self._stage_collect(ctx)
+            finally:
+                stop.set()
+                while any(t.is_alive() for t in threads):
+                    try:
+                        q_out.get(timeout=0.005)
+                    except queue.Empty:
+                        pass
+                for t in threads:
+                    t.join()
+            if err:
+                raise err[0]
+
+    def warmup(self, images: Any = None) -> int:
+        """Run the serving menu once so that real traffic does not pay the
+        first call of a shape: one batch call over ``images``, then one
+        single call each (single calls merge width buckets, so their shapes
+        differ). ``images`` defaults to one uniform-noise gray image per
+        configured canvas, from ``np.random.default_rng(0)``. On a card the
+        calls set up cuDNN for each canvas's detector shapes and load the
+        CUDA modules the path needs. Returns the number of calls made."""
+        if images is None:
+            rng = np.random.default_rng(0)
+            images = [rng.uniform(0, 255, (c.height, c.width)).astype(np.float32) for c in self.config.canvases]
+        self.readtext_batch(list(images))
+        for img in images:
+            self.readtext(img)
+        return 1 + len(images)
+
     def timings(self):
         """Per-stage wall-clock stats (letterbox/detect/boxes/rectify/
         recognize) accumulated since engine creation."""
         return self.timers.snapshot()
+
+    def read_joined(self, image: np.ndarray) -> str:
+        """The texts joined with spaces in reading order."""
+        return " ".join(t for _, t, _ in self.readtext(image))
+
+    def read_lines(self, image: np.ndarray) -> List[str]:
+        """The texts grouped into visual lines."""
+        res = self.readtext(image)
+        if not res:
+            return []
+        return [" ".join(res[i][1] for i in line) for line in group_lines([r[0] for r in res])]
 
     # ------------------------------------------------------------------
     # Pipeline stages
@@ -246,8 +390,8 @@ class OCREngine:
                 idxs = all_idxs[c : c + _CHUNK]
                 key = (canvas, c // _CHUNK)
                 with self.timers.stage("letterbox"):
-                    # uint8 on the wire, real rows only; widened and padded
-                    # to the row menu on the device.
+                    # uint8 (or bit-packed) on the wire, real rows only;
+                    # padded to the row menu and widened on the device
                     batch = np.zeros((len(idxs), canvas.height, canvas.width), np.uint8)
                     for slot, i in enumerate(idxs):
                         g = grays[i]
@@ -255,14 +399,24 @@ class OCREngine:
                         scales[i] = scale
                         batch[slot, :oh, :ow] = _host_resize(g, oh, ow)
                         canvas_pos[i] = (key, slot)
-                    dev = torch.from_numpy(batch).to(self.device).to(torch.float32)
+                    raw = torch.from_numpy(pack_canvas(batch, cfg.wire_bits)).to(self.device)
                     rows = bucketing.pad_count(len(idxs), _ROW_MENU)
-                    if rows > dev.shape[0]:
-                        dev = torch.cat([dev, dev.new_zeros((rows - dev.shape[0],) + dev.shape[1:])])
+                    if rows > raw.shape[0]:
+                        raw = torch.cat([raw, raw.new_zeros((rows - raw.shape[0],) + raw.shape[1:])])
+                    dev = unpack_widen(raw, cfg.wire_bits)
                     canvas_batches[key] = dev
+                pool = (
+                    cfg.detect_pool
+                    if cfg.detect_pool > 1 and canvas.height * canvas.width >= cfg.detect_pool_min_area
+                    else 1
+                )
                 with self.timers.stage("detect"):
-                    masks, regions = self.detect(dev)
-                pending.append((idxs, masks, regions))
+                    masks, regions = self.detect(dev, pool)
+                    coarse = None
+                    if cfg.detect_coarse > 1 and pool == 1:
+                        # a second pass over the same device canvas at 1/p
+                        coarse = self.detect(dev, cfg.detect_coarse) + (cfg.detect_coarse,)
+                pending.append((idxs, masks, regions, pool, coarse))
         return {
             "n_img": len(images), "scales": scales, "canvas_batches": canvas_batches,
             "canvas_pos": canvas_pos, "pending": pending,
@@ -274,20 +428,26 @@ class OCREngine:
         cfg = self.config
         det = cfg.detection
         per_image_quads: List[List[np.ndarray]] = [[] for _ in range(ctx["n_img"])]
-        for idxs, masks_dev, regions_dev in ctx["pending"]:
+
+        def quads_from(mask, region_q, pool):
+            qs = extract_boxes_masked(mask, region_q, det)
+            if det.split_multiline:
+                qs = split_multiline_quads(qs, region_q.astype(np.float32) / 255.0, det.low_text, det.min_size_px)
+            # map coords (maps are canvas / (2 pool)) -> canvas coords
+            return [q * (2.0 * pool) for q in qs]
+
+        for idxs, masks_dev, regions_dev, pool, coarse in ctx["pending"]:
             with self.timers.stage("detect"):
                 masks = masks_dev.cpu().numpy()
                 regions_q = regions_dev.cpu().numpy()
+                if coarse is not None:
+                    coarse = (coarse[0].cpu().numpy(), coarse[1].cpu().numpy(), coarse[2])
             with self.timers.stage("boxes"):
                 for slot, i in enumerate(idxs):
-                    qs = extract_boxes_masked(masks[slot], regions_q[slot], det)
-                    if det.split_multiline:
-                        qs = split_multiline_quads(
-                            qs, regions_q[slot].astype(np.float32) / 255.0,
-                            det.low_text, det.min_size_px,
-                        )
-                    # map coords (maps are canvas / 2) -> canvas coords
-                    per_image_quads[i] = [q * 2.0 for q in qs]
+                    quads = quads_from(masks[slot], regions_q[slot], pool)
+                    if coarse is not None:
+                        quads = merge_coarse_quads(quads, quads_from(coarse[0][slot], coarse[1][slot], coarse[2]))
+                    per_image_quads[i] = quads
         ctx["per_image_quads"] = per_image_quads
 
         buckets: Dict[int, List[Tuple[int, int, np.ndarray, int]]] = {}
@@ -343,8 +503,9 @@ class OCREngine:
             all_crops = torch.cat(crop_arrays) if len(crop_arrays) > 1 else crop_arrays[0]
             dispatched.append(self._recognize_dispatch(entries, order, all_crops, cap))
         ctx["dispatched"] = dispatched
-        ctx["canvas_batches"] = None
-        ctx["grays"] = None
+        # The dispatched warps hold what they need: drop the canvases, so
+        # that batches in flight in readtext_stream free device memory.
+        ctx["canvas_batches"] = ctx["pending"] = ctx["grays"] = None
 
     def _recognize_dispatch(self, entries, order, all_crops: torch.Tensor, cap: int):
         """Pad a bucket's crops and lengths to capacity and recognize."""
@@ -400,8 +561,9 @@ class OCREngine:
         scale, oh, ow = bucketing.letterbox_params(arr.shape[0], arr.shape[1], canvas)
         batch = np.zeros((1, canvas.height, canvas.width), np.uint8)
         batch[0, :oh, :ow] = _host_resize(arr, oh, ow)
+        packed = pack_canvas(batch, cfg.wire_bits)
         with self._lock, self.timers.stage("fast"):
-            gray = torch.from_numpy(batch).to(self.device).to(torch.float32)
+            gray = unpack_widen(torch.from_numpy(packed).to(self.device), cfg.wire_bits)
             out = fast_readtext_program(self, gray, cfg.fast_max_boxes, cfg.fast_bucket_w)
             boxes, ids, lens, conf, valid = (a.cpu().numpy() for a in out)
 

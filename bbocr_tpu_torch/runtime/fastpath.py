@@ -63,11 +63,12 @@ def device_boxes_from_mask(
 
 @torch.no_grad()
 def fast_readtext_program(engine, gray: torch.Tensor, k: int, bucket_w: int):
-    """(1, H, W) float32 gray canvas in [0, 255] on the engine's device ->
+    """(1, H, W) float32 gray canvas in [0, 255] on the engine's device (a
+    bit-packed upload already unpacked) ->
     (boxes (k, 4) canvas coords, ids (k, T), lens (k,), conf (k,), valid (k,))."""
     h, w = gray.shape[1:]
     det = engine.config.detection
-    maps = engine.craft(gray[:, None].to(engine.config.compute_dtype))
+    maps = engine.craft(engine.craft_input(gray))
     region, affinity = maps[0, 0], maps[0, 1]
     mask = (region > det.low_text) | (affinity > det.link_threshold)
     boxes_half, valid = device_boxes_from_mask(

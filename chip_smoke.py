@@ -60,18 +60,42 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    the JAX package's default-route JSON
    (``tests/data/default_route_jax_f32.json``); per photo the route, the
    chosen k, the boxes the re-read replaced and the ISBN are printed beside
-   JAX's. In bfloat16 (the extractor built with no engine, so the default
-   engine) the differences from ``default_route_jax_bf16.json`` are
-   printed. The card's device beam on every recorded re-read batch must
+   JAX's. In bfloat16 (an unwrapped engine of the default configuration,
+   as the reference was recorded) the differences from
+   ``default_route_jax_bf16.json`` are printed. The card's device beam on every recorded re-read batch must
    give the CPU's ids, and the card's labels on every fast-path mask the
    CPU's. Then it times the beam loop (host ms, device ms, kernel launches
    per re-read batch), the host warp (ms per crop), prints the labeling's
    step counts, times the fast path against ``readtext`` on ``book2.png``
-   and ``book4.png``, and a default-route photo's first call and warm call.
+   and ``book4.png``, and a default-route photo's first call and warm call;
+9. this slice's paths, in float32 (TF32 off) unless said otherwise, every
+   check failing the run: (a) ``BookMetadataExtractor(llm_backend=
+   "heuristic")`` built with no engine takes the process-wide shared engine
+   wrapped in ``BatchingOCR`` (its ``from_checkpoint`` given a float32
+   configuration for the run), with every kernel launch count set to 0 just
+   before and read just after; on the five covers and the camera photo each
+   JSON, route and k must equal the JAX package's
+   (``tests/data/shared_engine_route_jax_f32.json``); (b) 6 threads each
+   submit the six photos' OCR inputs to that batcher: fewer batches than
+   requests, and each result equal to one ``readtext_batch`` call on the
+   batch it was coalesced into; (c) ``readtext_stream`` over the covers and
+   the repository's JPEGs in batches of 8 (the default bfloat16 engine, as
+   ``bench.py`` runs it): each batch equal to ``readtext_batch``, photos per
+   second and stage times printed; (d) ``warmup``: its calls and seconds,
+   and a photo's first call with and without it, each in a fresh process
+   (``python3 chip_smoke.py --warmup-probe with|without``); (e) auto-crop:
+   the rectangles of the six preprocessed photos and the ``crop_for_ocr=True``
+   extractor's JSON and routes must equal the JAX package's
+   (``tests/data/autocrop_jax_f32.json``), kernel launches counted over that
+   route, ``text_mask``'s time at a cover's size; (f) ``book1.png`` read with
+   ``wire_bits`` 4 and 2, ``detect_pool=2``, ``detect_coarse=2`` and
+   ``fold_gray_stem=False``: texts equal to the JAX package's and quads
+   within 1 px (``tests/data/engine_options_jax_f32.json``), the letterbox
+   and detect stages' ms against the default.
 
 Phases 4 to 7 run the engine of the first slices (device warps from the
-canvas, greedy decode), as their references were recorded; phase 8 runs
-the defaults.
+canvas, greedy decode), as their references were recorded; phases 8 and 9
+run the defaults.
 
 Any failed check exits non-zero. The line before the last is one JSON
 object ``{"kernels": [...]}``; the last line is
@@ -88,6 +112,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -125,6 +150,13 @@ JPEG_DIGESTS = os.path.join(ROOT, "tests", "data", "jpeg_pillow_sha256.json")
 # (scripts/torch_port_reference.py --default-route [--dtype bfloat16])
 DEFAULT_ROUTE = os.path.join(ROOT, "tests", "data", "default_route_jax_f32.json")
 DEFAULT_ROUTE_BF16 = os.path.join(ROOT, "tests", "data", "default_route_jax_bf16.json")
+# The JAX package's no-engine extractor through its BatchingOCR-wrapped shared
+# engine, its auto-crop rectangles and crop_for_ocr JSON, and its readings of
+# book1.png under each engine option, all float32 (scripts/torch_port_reference.py
+# --shared-engine-route / --autocrop / --engine-options)
+SHARED_ROUTE = os.path.join(ROOT, "tests", "data", "shared_engine_route_jax_f32.json")
+AUTOCROP = os.path.join(ROOT, "tests", "data", "autocrop_jax_f32.json")
+ENGINE_OPTIONS = os.path.join(ROOT, "tests", "data", "engine_options_jax_f32.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SOURCE = "bbocr_tpu_torch/csrc/preprocess.cu"
@@ -357,6 +389,14 @@ class ReadRecorder:
         scores = [(orient.rotation_score(r), orient._wordlike_mass(r)) for r in self.reads]
         k = max(range(4), key=lambda i: (scores[i], -i))
         return k, scores, self.reads[k]
+
+
+def default_engine(dev, dtype=torch.bfloat16, **config) -> OCREngine:
+    """An unwrapped engine of the default configuration in ``dtype``."""
+    return OCREngine.from_checkpoint(
+        os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
+        EngineConfig(compute_dtype=dtype, **config), device=dev,
+    )
 
 
 def slice_engine(dev, dtype=torch.bfloat16) -> OCREngine:
@@ -764,10 +804,7 @@ def check_default_route(dev, card: str) -> dict:
     with open(DEFAULT_ROUTE_BF16) as f:
         ref_bf16 = json.load(f)["photos"]
     photos = list(ref)
-    engine = OCREngine.from_checkpoint(
-        os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
-        EngineConfig(compute_dtype=torch.float32), device=dev,
-    )
+    engine = default_engine(dev, torch.float32)
     if not (engine.config.host_rectify and engine.config.decoder == "greedy"):
         fail(f"the default engine configuration is not the JAX default: {engine.config}")
     extractor = BookMetadataExtractor(llm_backend="heuristic", engine=engine, device=dev)
@@ -831,8 +868,9 @@ def check_default_route(dev, card: str) -> dict:
     print(f"host warp: {len(warps.calls)} crops, {statistics.median(reps):.4f} ms per crop (median of 3 passes, "
           f"host CPU of the machine of the {card})", flush=True)
 
-    # bfloat16: the extractor with no other argument builds the default engine
-    extractor_bf16 = BookMetadataExtractor(llm_backend="heuristic", device=dev)
+    # bfloat16: an unwrapped engine of the default configuration, as the
+    # reference was recorded (the no-engine extractor's is wrapped: phase 9)
+    extractor_bf16 = BookMetadataExtractor(llm_backend="heuristic", engine=default_engine(dev), device=dev)
     got_bf16 = run_default_route(extractor_bf16, photos, "bfloat16", card)
     differ = 0
     for rel in photos:
@@ -870,6 +908,311 @@ def check_default_route(dev, card: str) -> dict:
     return launches
 
 
+class BatchLog:
+    """Records, in place, every ``readtext_batch`` call of an engine: the
+    images and the results. ``run`` is the unrecorded call."""
+
+    def __init__(self, engine):
+        self.engine, self.calls, self.run = engine, [], engine.readtext_batch
+        engine.readtext_batch = self.record
+
+    def record(self, images):
+        out = self.run(images)
+        self.calls.append((list(images), out))
+        return out
+
+
+def route_of_batches(calls):
+    """(route, k, chosen results) of one photo from the single-image batches
+    a ``BatchingOCR``-wrapped engine received for it."""
+    sizes = [len(images) for images, _ in calls]
+    if sizes == [1] * 4:
+        reads = [out[0] for _, out in calls]
+        scores = [(orient.rotation_score(r), orient._wordlike_mass(r)) for r in reads]
+        k = max(range(4), key=lambda i: (scores[i], -i))
+        return "rotations", k, reads[k]
+    if sizes == [1]:
+        return "readtext", None, calls[0][1][0]
+    fail(f"the wrapped engine received batches of {sizes} for one photo")
+
+
+def results_equal(a, b) -> bool:
+    """Two readings: the same texts, quads and confidences."""
+    return len(a) == len(b) and all(
+        ta == tb and np.array_equal(np.asarray(qa), np.asarray(qb)) and ca == cb
+        for (qa, ta, ca), (qb, tb, cb) in zip(a, b))
+
+
+def check_shared_route(dev, card):
+    """9(a): the no-engine extractor through the shared, wrapped engine.
+    Returns (the wrapper, its engine's batch log, each photo's OCR input,
+    the kernels' launches)."""
+    from bbocr_tpu_torch.extract import extractor as extractor_module
+    from bbocr_tpu_torch.runtime.batching import BatchingOCR
+
+    with open(SHARED_ROUTE) as f:
+        ref = json.load(f)["photos"]
+    if os.environ.get("BB_OCR_BATCHING") is not None:
+        fail("BB_OCR_BATCHING is set: phase 9 checks the default wrapping")
+    extractor_module._ENGINE_CACHE.clear()
+    logs = []
+    from_checkpoint = OCREngine.__dict__["from_checkpoint"]
+
+    def float32_engine(cls, craft, crnn, config=None, **kw):
+        # the shared engine's default configuration, in the reference's float32
+        engine = from_checkpoint.__func__(cls, craft, crnn, EngineConfig(compute_dtype=torch.float32), **kw)
+        logs.append(BatchLog(engine))
+        return engine
+
+    OCREngine.from_checkpoint = classmethod(float32_engine)
+    try:
+        extractor = BookMetadataExtractor(llm_backend="heuristic", device=dev)
+        wrapper = extractor.engine
+    finally:
+        OCREngine.from_checkpoint = from_checkpoint
+    if not isinstance(wrapper, BatchingOCR) or len(logs) != 1:
+        fail(f"the no-engine extractor's engine is a {type(wrapper).__name__}, not one BatchingOCR")
+    log = logs[0]
+    inputs, bad = {}, []
+    kernels.reset_launches()
+    for rel in ref:
+        log.calls.clear()
+        t0 = time.perf_counter()
+        meta = extractor.extract_metadata_from_images([os.path.join(ROOT, rel)], ocr_image_indices=[0])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        validate_schema(meta)
+        meta.pop("_processing_info")
+        route, k, chosen = route_of_batches(log.calls)
+        inputs[rel] = log.calls[0][0][0]  # the unrotated OCR input
+        got = {"route": route, "k": k, "boxes": len(chosen)}
+        want = {key: ref[rel][key] for key in got}
+        print(f"  {rel}: {seconds:.3f} s; {json.dumps(got)}; JAX {json.dumps(want)}", flush=True)
+        if meta != ref[rel]["meta"] or got != want:
+            bad.append(rel)
+            print(f"    texts {[t for _, t, _ in chosen]}\n    JAX   {ref[rel]['texts']}\n    JSON {json.dumps(meta)}\n"
+                  f"    JAX  {json.dumps(ref[rel]['meta'])}", flush=True)
+    launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+    print(f"no-engine extractor: launches {json.dumps(launches)}; {wrapper.batches_dispatched} batches, "
+          f"{wrapper.images_processed} images; {card}", flush=True)
+    if bad:
+        fail(f"no-engine extractor, float32: JSON, route or k differs from the JAX package's on {bad}")
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"kernel {name} was not launched by the no-engine extractor's route")
+    print(f"no-engine extractor (BatchingOCR-wrapped shared engine), float32: the JSON, route and k of all "
+          f"{len(ref)} photos equal the JAX package's", flush=True)
+    return wrapper, log, inputs, launches
+
+
+def check_batcher(wrapper, log, inputs, card) -> None:
+    """9(b): 6 threads each submit the six OCR inputs; every result must
+    equal one ``readtext_batch`` call on the batch it was coalesced into."""
+    photos = list(inputs.values())
+    log.calls.clear()
+    batches0, images0 = wrapper.batches_dispatched, wrapper.images_processed
+    errors = []
+
+    def client(t):
+        try:
+            for img in photos:
+                wrapper.readtext(img, timeout=600)
+        except Exception as e:  # reported below, and the run fails
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(6)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    seconds = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"BatchingOCR under load: {errors or 'a client did not finish'}")
+    requests = 6 * len(photos)
+    batches = wrapper.batches_dispatched - batches0
+    images = wrapper.images_processed - images0
+    print(f"BatchingOCR under 6 threads: {requests} requests in {batches} batches (batches_dispatched), "
+          f"{images} images_processed, sizes {[len(i) for i, _ in log.calls]}, {batches / requests:.4f} batches "
+          f"per request; {seconds:.3f} s; {card}", flush=True)
+    if images != requests or batches >= requests:
+        fail(f"BatchingOCR under load: {batches} batches for {requests} requests, {images} images processed")
+    for images_in, out in log.calls:
+        again = log.run(images_in)
+        if not all(results_equal(a, b) for a, b in zip(again, out)):
+            fail(f"a coalesced batch of {len(images_in)} differs from readtext_batch on the same images")
+    print(f"BatchingOCR: all {len(log.calls)} coalesced batches equal readtext_batch on the same compositions",
+          flush=True)
+
+
+def stream_photos():
+    """The covers and the repository's JPEGs, in ``bench.py``'s order."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(ROOT, "data", "real", "covers", "*.png")))
+    paths += sorted(glob.glob(os.path.join(ROOT, "data", "real", "photos", "*", "*.jpg")))
+    paths += sorted(glob.glob(os.path.join(ROOT, "books", "*", "*.jpg")))
+    return [load_rgb(p) for p in paths]
+
+
+def check_stream(dev, card) -> None:
+    """9(c): ``readtext_stream`` in batches of 8 on the default (bfloat16)
+    engine; each batch equal to ``readtext_batch``, whose first pass also
+    warms every shape, as ``bench.py`` does; then a warm ``readtext_batch``
+    pass over the same batches, timed for comparison."""
+    engine = default_engine(dev)
+    photos = stream_photos()
+    batches = [photos[i:i + 8] for i in range(0, len(photos), 8)]
+    t0 = time.perf_counter()
+    want = [engine.readtext_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    engine.timers.reset()
+    t0 = time.perf_counter()
+    got = list(engine.readtext_stream(iter(batches)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stages = engine.timings()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if len(g) != len(w) or not all(results_equal(a, b) for a, b in zip(g, w)):
+            fail(f"readtext_stream batch {i} differs from readtext_batch")
+    if len(got) != len(batches):
+        fail(f"readtext_stream yielded {len(got)} batches for {len(batches)}")
+    t0 = time.perf_counter()
+    for b in batches:
+        engine.readtext_batch(b)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    boxes = sum(len(r) for b in got for r in b)
+    print(f"readtext_stream, bfloat16: {len(photos)} photos in {len(batches)} batches of 8, every batch equal to "
+          f"readtext_batch; {seconds:.3f} s, {len(photos) / seconds:.3f} photos per second, {boxes} boxes; "
+          f"readtext_batch over the same batches, first pass {first:.3f} s, warm pass after the stream {warm:.3f} s "
+          f"({len(photos) / warm:.3f} photos per second); {card}", flush=True)
+    print(f"readtext_stream stage times (host wall, summed over the stage threads): {json.dumps(stages)}; {card}",
+          flush=True)
+
+
+def warmup_probe(mode: str) -> int:
+    """``--warmup-probe with|without``, in a fresh process: book2.png's first
+    ``readtext`` on the default (bfloat16) engine after ``warmup()`` or
+    without it, and its second call; one JSON line."""
+    dev = torch.device("cuda", 0)
+    image = _preprocess(load_rgb(os.path.join(ROOT, "data", "real", "covers", "book2.png")), 1.5, "cpu", PLAIN_OPS)
+    image = image.numpy()  # preprocessed on the CPU: nothing has run on the card yet
+    t0 = time.perf_counter()
+    engine = default_engine(dev)
+    torch.cuda.synchronize()
+    out = {"mode": mode, "load_s": time.perf_counter() - t0}
+    if mode == "with":
+        t0 = time.perf_counter()
+        out["warmup_calls"] = engine.warmup()
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+    for key in ("first_call_s", "second_call_s"):
+        t0 = time.perf_counter()
+        engine.readtext(image)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def check_warmup(card) -> None:
+    """9(d): the two probes, one fresh process each."""
+    rows = {}
+    for mode in ("without", "with"):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--warmup-probe", mode], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            fail(f"warm-up probe '{mode}' failed:\n{proc.stderr[-2000:]}")
+        rows[mode] = json.loads(proc.stdout.strip().splitlines()[-1])
+    w, wo = rows["with"], rows["without"]
+    print(f"warmup, bfloat16, fresh process each: {w['warmup_calls']} calls in {w['warmup_s']:.3f} s; book2.png "
+          f"first call {wo['first_call_s']:.3f} s without warmup (second {wo['second_call_s']:.3f} s), "
+          f"{w['first_call_s']:.3f} s after it (second {w['second_call_s']:.3f} s); engine load "
+          f"{wo['load_s']:.3f} / {w['load_s']:.3f} s; {card}", flush=True)
+    if w["warmup_calls"] != 1 + len(EngineConfig().canvases):
+        fail(f"warmup made {w['warmup_calls']} calls")
+
+
+def check_autocrop(dev, card) -> dict:
+    """9(e): the rectangles of the six preprocessed photos, the
+    ``crop_for_ocr=True`` extractor's JSON and routes, the kernels' launches
+    over that route, and ``text_mask``'s time at a cover's size."""
+    from bbocr_tpu_torch.preprocess import auto_crop_text_region, preprocess_for_book_cover, text_mask
+
+    with open(AUTOCROP) as f:
+        ref = json.load(f)["photos"]
+    bad = []
+    for rel, entry in ref.items():
+        pre = preprocess_for_book_cover(load_rgb(os.path.join(ROOT, rel)), device=dev)[0]
+        rect = auto_crop_text_region(pre, 128)
+        got = None if rect is None else list(rect)
+        print(f"  {rel}: preprocessed {list(pre.shape)}, crop {got}; JAX {entry['preprocessed_shape']}, "
+              f"{entry['rect']}", flush=True)
+        if got != entry["rect"] or list(pre.shape) != entry["preprocessed_shape"]:
+            bad.append(rel)
+        if rel.endswith("book1.png"):
+            masked = lambda pre=pre: text_mask(pre)  # noqa: E731
+            device = profiled_device_ms(masked, "", reps=5)
+            print(f"text_mask at {tuple(pre.shape)}: {median_ms(masked, reps=5):.4f} ms per call (CUDA events), "
+                  f"{'not measured' if device is None else f'{device:.4f} ms'} device time; {card}", flush=True)
+    if bad:
+        fail(f"auto-crop rectangles differ from the JAX package's on {bad}")
+    extractor = BookMetadataExtractor(llm_backend="heuristic", crop_for_ocr=True,
+                                      engine=default_engine(dev, torch.float32), device=dev)
+    kernels.reset_launches()
+    got = run_default_route(extractor, list(ref), "auto-crop, float32", card)
+    launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+    for rel in ref:
+        meta, route, _ = got[rel]
+        print(route_line(rel, route, ref[rel]), flush=True)
+        if meta != ref[rel]["meta"] or route["route"] != ref[rel]["route"] or route["k"] != ref[rel]["k"]:
+            bad.append(rel)
+            print(f"    JSON {json.dumps(meta)}\n    JAX  {json.dumps(ref[rel]['meta'])}", flush=True)
+    print(f"auto-crop route: launches {json.dumps(launches)}", flush=True)
+    if bad:
+        fail(f"crop_for_ocr=True, float32: JSON or route differs from the JAX package's on {bad}")
+    for name, count in launches.items():
+        if count < 1:
+            fail(f"kernel {name} was not launched by the auto-crop route")
+    print(f"auto-crop: the rectangles, JSON and routes of all {len(ref)} photos equal the JAX package's", flush=True)
+    return launches
+
+
+def check_engine_options(dev, card) -> None:
+    """9(f): book1.png under each engine option against the JAX package's
+    readings; the letterbox and detect stages' ms per read (mean of 3 warm
+    reads)."""
+    with open(ENGINE_OPTIONS) as f:
+        ref = json.load(f)
+    image = _preprocess(load_rgb(BOOK1), 1.5, dev, KERNEL_OPS).cpu().numpy()
+    if list(image.shape) != ref["image_shape"]:
+        fail(f"book1.png preprocessed to {image.shape}, the reference to {ref['image_shape']}")
+    bad = []
+    for name, entry in ref["options"].items():
+        engine = default_engine(dev, torch.float32, **entry["config"])
+        res = engine.readtext(image)
+        want = entry["readtext"]
+        texts = [t for _, t, _ in res]
+        err = max((float(np.abs(np.asarray(q) - np.asarray(rq)).max()) for (q, _, _), rq in zip(res, want["quads"])),
+                  default=0.0)
+        engine.timers.reset()
+        for _ in range(3):
+            engine.readtext(image)
+        torch.cuda.synchronize()
+        stages = engine.timings()
+        print(f"  {name}: {len(res)} boxes (JAX {len(want['texts'])}), texts "
+              f"{'equal' if texts == want['texts'] else 'DIFFER'}, quads within {err:.4f} px; letterbox "
+              f"{stages['letterbox']['total_s'] * 1e3 / 3:.2f} ms, detect {stages['detect']['total_s'] * 1e3 / 3:.2f} "
+              f"ms per read; {card}", flush=True)
+        if texts != want["texts"] or err > 1.0:
+            bad.append(name)
+            print(f"    texts {texts}\n    JAX   {want['texts']}", flush=True)
+    if bad:
+        fail(f"engine options: book1.png's reading differs from the JAX package's under {bad}")
+
+
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
@@ -880,6 +1223,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--warmup-probe"]:
+        return warmup_probe(sys.argv[2])
     dev = torch.device("cuda", 0)
     log("phase 1: card")
     card = card_line()
@@ -953,10 +1298,27 @@ def main() -> int:
     for name, count in check_default_route(dev, card).items():
         report[name]["launches_default_route"] = count
 
+    log("phase 9a: the no-engine extractor (shared engine in BatchingOCR), float32")
+    wrapper, batch_log, inputs, launches = check_shared_route(dev, card)
+    for name, count in launches.items():
+        report[name]["launches_shared_route"] = count
+    log("phase 9b: BatchingOCR under 6 threads")
+    check_batcher(wrapper, batch_log, inputs, card)
+    wrapper.close()
+    log("phase 9c: readtext_stream in batches of 8")
+    check_stream(dev, card)
+    log("phase 9d: warmup, fresh processes")
+    check_warmup(card)
+    log("phase 9e: auto-crop")
+    for name, count in check_autocrop(dev, card).items():
+        report[name]["launches_autocrop_route"] = count
+    log("phase 9f: engine options on book1.png")
+    check_engine_options(dev, card)
+
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed",
-             "launches_default_route"]
+             "launches_default_route", "launches_shared_route", "launches_autocrop_route"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,9 @@ references for the PyTorch port.
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --default-route \
         [--dtype float32|bfloat16] [--canvas HxW] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --covers [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --shared-engine-route [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --autocrop [--canvas 640x480] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --engine-options [--canvas 416x320] [--out PATH]
 
 Default mode: the photo goes through ``_chain_gray_pallas`` and then
 ``OCREngine.readtext`` in the given compute type with the configuration the
@@ -51,6 +54,43 @@ files, ``tests/test_torch_slice.py`` the CPU against the 640x480 one.
 re-reads and the fast path off, a float32 engine on one 640x480 canvas,
 device warps and greedy decode, to ``tests/data/covers_jax_f32_640x480.json``
 (``tests/test_torch_slice.py::test_cover_metadata_matches_jax_extractor``).
+
+``--shared-engine-route``: the JAX extractor as its users get it with no
+``engine`` argument: ``BookMetadataExtractor(llm_backend="heuristic")``
+takes ``_shared_engine()``, which wraps the engine in ``BatchingOCR``
+(``BB_OCR_BATCHING`` unset), so there is no fast path and no re-read. The
+engine ``_shared_engine()`` wraps is a float32 ``OCREngine`` with the
+default configuration otherwise (``OCREngine.from_checkpoint`` is replaced
+for the run to give it, since the shared engine's own is bfloat16). For
+the five covers and ``IMG_9687.jpg`` it records the metadata JSON, the
+route (``rotations``: four single-image batches; ``readtext``: one), the
+chosen rotation and the texts, in
+``tests/data/shared_engine_route_jax_f32.json`` (``chip_smoke.py`` phase 9).
+
+``--autocrop``: for the five covers and ``IMG_9687.jpg``, the shape of the
+preprocessed photo (``_chain_gray_pallas``) and the rectangle
+``auto_crop_text_region(preprocessed, 128)`` gives (the extractor's
+margin), then the metadata JSON and route of the JAX extractor with
+``crop_for_ocr=True`` and otherwise default knobs on an unwrapped float32
+engine of default configuration, to ``tests/data/autocrop_jax_f32.json``
+(``chip_smoke.py`` phase 9). With ``--canvas 640x480``: the five covers'
+JSON with ``crop_for_ocr=True`` and rotations, re-reads and the fast path
+off, on one 640x480 canvas with device warps and greedy decode, to
+``tests/data/autocrop_jax_f32_640x480.json``
+(``tests/test_torch_autocrop.py``).
+
+``--engine-options``: ``OCREngine.readtext`` of the preprocessed
+``book1.png`` (1312x1050, canvas 1184x864) with a float32 engine of the
+JAX default configuration (host rectification, greedy decode) and each
+option on its own: ``wire_bits`` 4 and 2, ``detect_pool=2`` with
+``detect_pool_min_area`` lowered to the canvas, ``detect_coarse=2`` and
+``fold_gray_stem=False``, and no option; to
+``tests/data/engine_options_jax_f32.json`` (``chip_smoke.py`` phase 9).
+With ``--canvas 416x320``: the same options on one 416x320 canvas over
+``book1.png`` in gray, ``cv2.INTER_AREA``-resized to 320x400, through
+``readtext`` and ``readtext_fast``, to
+``tests/data/engine_options_jax_f32_416x320.json``
+(``tests/test_torch_wire.py``).
 
 ``--jpeg-digests``: the SHA-256 of Pillow's RGB decoding of every JPEG in
 ``books/`` and ``data/real/photos/``, with its shape, to
@@ -243,6 +283,145 @@ def covers_without_route() -> dict:
     return extractor_readings(COVERS, "float32", (640, 480), knobs, {})
 
 
+class BatchRecorder:
+    """The engine a ``BatchingOCR`` wraps: records each ``readtext_batch``
+    call's image count and results."""
+
+    def __init__(self, engine):
+        self.engine, self.calls = engine, []
+
+    def readtext_batch(self, images):
+        out = self.engine.readtext_batch(images)
+        self.calls.append((len(images), out))
+        return out
+
+    def timings(self):
+        return self.engine.timings()
+
+    def summary(self) -> dict:
+        from bbocr_tpu.runtime.orient import _wordlike_mass, rotation_score
+
+        if [n for n, _ in self.calls] == [1] * 4:
+            reads = [r[0] for _, r in self.calls]
+            scores = [(rotation_score(r), _wordlike_mass(r)) for r in reads]
+            k = max(range(4), key=lambda i: (scores[i], -i))
+            route, chosen = "rotations", reads[k]
+        elif [n for n, _ in self.calls] == [1]:
+            k, route, chosen = None, "readtext", self.calls[0][1][0]
+        else:
+            raise SystemExit(f"unexpected batches {[n for n, _ in self.calls]}")
+        return {"route": route, "k": k, "boxes": len(chosen), "texts": [t for _, t, _ in chosen]}
+
+
+def shared_engine_route() -> dict:
+    """The no-engine JAX extractor through ``_shared_engine()``."""
+    from bbocr_tpu.extract import extractor as jax_extractor
+    from bbocr_tpu.runtime.batching import BatchingOCR
+    from bbocr_tpu.runtime.engine import OCREngine
+
+    recorder = BatchRecorder(_engine("float32", host_rectify=True))
+    if os.environ.get("BB_OCR_BATCHING") is not None:
+        raise SystemExit("unset BB_OCR_BATCHING: the recording is of the default wrapping")
+    jax_extractor._ENGINE_CACHE.clear()
+    original = OCREngine.__dict__["from_checkpoint"]
+    OCREngine.from_checkpoint = classmethod(lambda cls, *args, **kw: recorder)
+    try:
+        extractor = jax_extractor.BookMetadataExtractor(llm_backend="heuristic")
+        if not isinstance(extractor.engine, BatchingOCR):
+            raise SystemExit(f"the shared engine is a {type(extractor.engine).__name__}")
+    finally:
+        OCREngine.from_checkpoint = original
+    out = {}
+    for rel in COVERS + [CAMERA]:
+        recorder.calls = []
+        t0 = time.perf_counter()
+        meta = extractor.extract_metadata_from_images([os.path.join(ROOT, rel)], ocr_image_indices=[0])
+        meta.pop("_processing_info")
+        out[rel] = {"meta": meta, **recorder.summary()}
+        print(f"{rel}: {time.perf_counter() - t0:.1f} s, {json.dumps({k: v for k, v in out[rel].items() if k != 'meta'})}")
+    extractor.engine.close()
+    jax_extractor._ENGINE_CACHE.clear()
+    return {"dtype": "float32", "wrapper": "BatchingOCR", "photos": out}
+
+
+def _preprocessed_photo(rel: str):
+    """The photo as the JAX extractor preprocesses it (before any crop)."""
+    import jax.numpy as jnp
+    import numpy as np
+    from PIL import Image
+
+    from bbocr_tpu.preprocess import preprocess_for_book_cover
+
+    with Image.open(os.path.join(ROOT, rel)) as img:
+        rgb = np.asarray(img.convert("RGB"))
+    return np.asarray(preprocess_for_book_cover(jnp.asarray(rgb, jnp.float32))[0])
+
+
+def autocrop(canvas) -> dict:
+    from bbocr_tpu.preprocess import auto_crop_text_region
+
+    if canvas is not None:
+        knobs = dict(auto_rotate=False, reread_low_conf=False, isbn_reread=False, fast_single=False,
+                     warm_model=False, crop_for_ocr=True)
+        return extractor_readings(COVERS, "float32", canvas, knobs, {})
+    rects = {}
+    for rel in COVERS + [CAMERA]:
+        pre = _preprocessed_photo(rel)
+        rect = auto_crop_text_region(pre, 128)
+        rects[rel] = {"preprocessed_shape": list(pre.shape), "rect": None if rect is None else list(rect)}
+        print(f"{rel}: {rects[rel]}")
+    out = extractor_readings(COVERS + [CAMERA], "float32", None, {"crop_for_ocr": True}, dict(
+        host_rectify=True, wire_bits=8, decoder="greedy", detect_pool=1, detect_coarse=0))
+    for rel, entry in out["photos"].items():
+        entry.update(rects[rel])
+    return out
+
+
+ENGINE_OPTIONS = {
+    "default": {},
+    "wire_bits=4": {"wire_bits": 4},
+    "wire_bits=2": {"wire_bits": 2},
+    "detect_pool=2": {"detect_pool": 2},
+    "detect_coarse=2": {"detect_coarse": 2},
+    "fold_gray_stem=False": {"fold_gray_stem": False},
+}
+
+
+def small_cover():
+    """``book1.png`` in gray, resized to 320x400 with ``cv2.INTER_AREA``."""
+    import cv2
+    from PIL import Image
+    import numpy as np
+
+    with Image.open(os.path.join(ROOT, "data", "real", "covers", "book1.png")) as img:
+        gray = cv2.cvtColor(np.asarray(img.convert("RGB")), cv2.COLOR_RGB2GRAY)
+    return cv2.resize(gray, (320, 400), interpolation=cv2.INTER_AREA)
+
+
+def engine_options(canvas) -> dict:
+    from bbocr_tpu.runtime.bucketing import CanvasSpec, pick_canvas
+
+    if canvas is None:
+        image = _preprocessed(os.path.join(ROOT, "data", "real", "covers", "book1.png"))
+        spec = pick_canvas(*image.shape)
+        fns = ("readtext",)
+    else:
+        image, spec, fns = small_cover(), CanvasSpec(*canvas), ("readtext", "readtext_fast")
+    out = {}
+    for name, option in ENGINE_OPTIONS.items():
+        config = dict(host_rectify=True, **option)
+        if "detect_pool" in option:
+            config["detect_pool_min_area"] = spec.height * spec.width
+        if canvas is not None:
+            config["canvases"] = (spec,)
+        engine = _engine("float32", **config)
+        out[name] = {"config": {k: v for k, v in config.items() if k != "canvases"}}
+        for fn in fns:
+            out[name][fn] = _boxes(getattr(engine, fn)(image))
+        print(f"{name}: {json.dumps({fn: out[name][fn]['texts'] for fn in fns})}")
+    return {"dtype": "float32", "image_shape": list(image.shape), "canvas": [spec.height, spec.width], "options": out}
+
+
 def jpeg_digests() -> dict:
     import numpy as np
     from PIL import Image
@@ -274,18 +453,31 @@ def main() -> None:
     mode.add_argument("--jpeg-digests", action="store_true")
     mode.add_argument("--default-route", action="store_true")
     mode.add_argument("--covers", action="store_true")
-    p.add_argument("--canvas", default=None, help="HxW: one canvas instead of the menu (--default-route)")
+    mode.add_argument("--shared-engine-route", action="store_true")
+    mode.add_argument("--autocrop", action="store_true")
+    mode.add_argument("--engine-options", action="store_true")
+    p.add_argument("--canvas", default=None,
+                   help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options)")
     p.add_argument("--image", default=None)
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--out", default=None)
     args = p.parse_args()
     data = os.path.join(ROOT, "tests", "data")
     suffix = {"float32": "f32", "bfloat16": "bf16"}[args.dtype]
+    canvas = tuple(int(v) for v in args.canvas.split("x")) if args.canvas else None
+    tail = f"_{args.canvas}" if args.canvas else ""
     if args.default_route:
-        canvas = tuple(int(v) for v in args.canvas.split("x")) if args.canvas else None
         out = default_route(args.dtype, canvas)
-        tail = f"_{args.canvas}" if args.canvas else ""
         out_path = args.out or os.path.join(data, f"default_route_jax_{suffix}{tail}.json")
+    elif args.shared_engine_route:
+        out = shared_engine_route()
+        out_path = args.out or os.path.join(data, "shared_engine_route_jax_f32.json")
+    elif args.autocrop:
+        out = autocrop(canvas)
+        out_path = args.out or os.path.join(data, f"autocrop_jax_f32{tail}.json")
+    elif args.engine_options:
+        out = engine_options(canvas)
+        out_path = args.out or os.path.join(data, f"engine_options_jax_f32{tail}.json")
     elif args.covers:
         out = covers_without_route()
         out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")
@@ -304,7 +496,7 @@ def main() -> None:
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"{len(out.get('texts', out.get('photos', out)))} entries -> {out_path}")
+    print(f"{len(out.get('texts', out.get('photos', out.get('options', out))))} entries -> {out_path}")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,11 @@ runs the port's extractor with the CLI's defaults on the CPU: a small PNG
 (the fast path, then both re-reads, crops warped on the host by the C++
 warp), and a JPEG of ``books/`` decoded by the port's decoder and read
 through the rotation route (``auto_rotate`` left to resolve, then both
-re-reads); then it imports ``chip_smoke`` without running its main.
+re-reads); then it imports ``chip_smoke`` without running its main. A
+second subprocess runs this slice's paths the same way: the CLI's extractor
+with no engine (the shared engine wrapped in ``BatchingOCR``) and the
+auto-crop, the pipelined stream, ``warmup``, and an engine with bit-packed
+canvases, the coarse pass and the unfolded stem.
 """
 
 import json
@@ -21,7 +25,7 @@ from PIL import Image
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = textwrap.dedent(
+BLOCKER = textwrap.dedent(
     """
     import importlib.abc
     import json
@@ -42,7 +46,11 @@ SCRIPT = textwrap.dedent(
         pass
     else:
         raise SystemExit("the import blocker does not work")
+    """
+)
 
+SCRIPT = BLOCKER + textwrap.dedent(
+    """
     import torch
 
     torch.set_num_threads(2)
@@ -78,19 +86,75 @@ SCRIPT = textwrap.dedent(
 )
 
 
-def test_port_runs_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
+SLICE_SCRIPT = BLOCKER + textwrap.dedent(
+    """
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(2)
+    from bbocr_tpu_torch.cli.process_book import make_extractor
+    from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
+    from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
+
+    SMALL = dict(canvases=(CanvasSpec(288, 224),), compute_dtype=torch.float32)
+    built, calls = [], []
+    from_checkpoint = OCREngine.from_checkpoint.__func__
+
+    def small_engine(cls, craft, crnn, config=None, **kw):  # the shared engine, at a small size
+        engine = from_checkpoint(cls, craft, crnn, EngineConfig(**SMALL), **kw)
+        batch = engine.readtext_batch
+        engine.readtext_batch = lambda images: calls.append(len(images)) or batch(images)
+        built.append(engine)
+        return engine
+
+    OCREngine.from_checkpoint = classmethod(small_engine)
+    extractor = make_extractor(device="cpu", crop_for_ocr=True)
+    meta = extractor.extract_metadata_from_images([sys.argv[1]], ocr_image_indices=[0])
+    OCREngine.from_checkpoint = classmethod(from_checkpoint)
+    engine = built[0]
+    image = np.asarray(extractor._process_image(np.zeros((200, 160, 3), np.uint8) + 128)["final"])
+    small = meta["_processing_info"]
+    batches = [[image], [], [image, image[::-1].copy()]]
+    stream = list(engine.readtext_stream(iter(batches)))
+    same = [engine.readtext_batch(b) for b in batches] == stream
+    warm = engine.warmup()
+    options = OCREngine.from_checkpoint(
+        "checkpoints/craft.npz", "checkpoints/crnn.npz",
+        EngineConfig(wire_bits=4, detect_coarse=2, detect_pool=2, detect_pool_min_area=0, fold_gray_stem=False,
+                     **SMALL), device="cpu")
+    options.readtext(image)
+    options.readtext_fast(image)
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+    print(json.dumps({"wrapper": type(extractor.engine).__name__, "calls": calls[:1], "engines": len(built),
+                      "stream_equal": same, "stream_len": len(stream), "warmup": warm, "loaded": loaded,
+                      "title": "title" in meta}))
+    """
+)
+
+
+def _run_blocked(script, *args):
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BB_OCR_BATCHING")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run(
+        [sys.executable, "-c", script, *args], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _small_png(tmp_path):
     with Image.open(os.path.join(ROOT, "data", "real", "covers", "book1.png")) as img:
         small = np.asarray(img.convert("RGB"))[::5, ::5]
     png = tmp_path / "small.png"
     Image.fromarray(small).save(png)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
-    proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(png)], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    return str(png)
+
+
+def test_port_runs_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
+    """The extractor with an engine passed in (no wrapper): the fast path
+    and both re-reads on the PNG, the rotation route on the JPEG."""
+    out = _run_blocked(SCRIPT, _small_png(tmp_path))
     assert out["loaded"] == []
     assert out["meta"]["_processing_info"]["structurer"] == "heuristic"
     assert "title" in out["meta"]
@@ -99,6 +163,17 @@ def test_port_runs_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
     assert out["camera_route"][:4] == ["readtext"] * 4
     assert out["camera_route"][4:] == ["reread_low_conf", "reread_isbn"]
     assert out["camera"]["_processing_info"]["ocr_boxes"] > 0
+
+
+def test_slice_paths_run_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
+    """The CLI's extractor with no engine takes one shared engine wrapped in
+    ``BatchingOCR`` (one single-image batch for the small PNG, cropped to its
+    text); the stream equals ``readtext_batch``; ``warmup`` makes 2 calls on
+    one canvas; bit-packed, pooled, coarse and unfolded-stem detection run."""
+    out = _run_blocked(SLICE_SCRIPT, _small_png(tmp_path))
+    assert out["loaded"] == [] and out["title"]
+    assert out["wrapper"] == "BatchingOCR" and out["engines"] == 1 and out["calls"] == [1]
+    assert out["stream_equal"] and out["stream_len"] == 3 and out["warmup"] == 2
 
 
 def _run_smoke(cwd, script):

@@ -200,9 +200,8 @@ def test_extractor_makes_valid_json(engines, tmp_path):
     "kwargs",
     [
         {"llm_backend": "ollama"},
-        {"crop_for_ocr": True},
     ],
-    ids=["llm", "autocrop"],
+    ids=["llm"],
 )
 def test_extractor_refuses_unported_knobs(kwargs):
     base = dict(llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False, fast_single=False)
@@ -246,41 +245,44 @@ def test_extractor_auto_rotate_takes_the_rotation_route(auto_rotate, shape, read
 
 
 @pytest.mark.parametrize(
-    "kwargs",
-    [{"wire_bits": 4}],
-    ids=["wire_bits"],
+    "craft_tree",
+    [{"slice1": {}}, {"LiteBackbone_0": {}}],
+    ids=["published", "lite"],
 )
-def test_engine_refuses_unported_options(kwargs):
+def test_engine_refuses_unported_options(craft_tree):
+    """The published CRAFT layout and CRAFTLite are not ported yet."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        OCREngine({"params": {}}, {"params": {}}, EngineConfig(**kwargs), device="cpu")
-
-
-_PORTED_FIELDS = ("canvases", "width_buckets", "batch_capacities", "min_confidence", "contrast_ths",
-                  "fast_max_boxes", "fast_bucket_w", "merge_buckets_below", "decoder", "host_rectify", "wire_bits")
+        OCREngine({"params": craft_tree}, {"params": {}}, EngineConfig(), device="cpu")
 
 
 @pytest.mark.parametrize(
     "env",
     [{}, {"BB_OCR_DECODER": "beam", "BB_OCR_HOST_RECTIFY": "0"}, {"BB_OCR_HOST_RECTIFY": "false"},
-     {"BB_OCR_HOST_RECTIFY": "yes"}],
-    ids=["defaults", "beam_device_warp", "false", "yes"],
+     {"BB_OCR_HOST_RECTIFY": "yes"}, {"BB_OCR_WIRE_BITS": "4", "BB_OCR_DETECT_COARSE": "2"},
+     {"BB_OCR_WIRE_BITS": "2", "BB_OCR_DECODER": "beam"}],
+    ids=["defaults", "beam_device_warp", "false", "yes", "wire4_coarse2", "wire2_beam"],
 )
 def test_engine_config_defaults_match_jax(monkeypatch, env):
-    """``EngineConfig()`` equals the JAX one on every ported field, reading
-    ``BB_OCR_DECODER`` and ``BB_OCR_HOST_RECTIFY`` when it is constructed."""
-    for name in ("BB_OCR_DECODER", "BB_OCR_HOST_RECTIFY", "BB_OCR_WIRE_BITS"):
+    """``EngineConfig()`` equals the JAX one on every field, in the same
+    order, reading ``BB_OCR_DECODER``, ``BB_OCR_HOST_RECTIFY``,
+    ``BB_OCR_WIRE_BITS`` and ``BB_OCR_DETECT_COARSE`` when it is
+    constructed."""
+    for name in ("BB_OCR_DECODER", "BB_OCR_HOST_RECTIFY", "BB_OCR_WIRE_BITS", "BB_OCR_DETECT_COARSE",
+                 "BB_OCR_CANVAS_XL"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
     ours, ref = EngineConfig(), JaxEngineConfig()
-    for name in _PORTED_FIELDS:
-        got, want = getattr(ours, name), getattr(ref, name)
-        if name == "canvases":
+    assert [f.name for f in dataclasses.fields(ours)] == [f.name for f in dataclasses.fields(ref)]
+    for f in dataclasses.fields(ours):
+        got, want = getattr(ours, f.name), getattr(ref, f.name)
+        if f.name == "canvases":
             got, want = [(c.height, c.width) for c in got], [(c.height, c.width) for c in want]
-        assert got == want, name
-    for name, value in dataclasses.asdict(ours.detection).items():  # the JAX one adds use_native
-        assert getattr(ref.detection, name) == value, name
-    assert str(ours.compute_dtype).split(".")[-1] == jnp.dtype(ref.compute_dtype).name
+        elif f.name == "detection":  # the JAX one adds use_native
+            got, want = dataclasses.asdict(got), {k: getattr(want, k) for k in dataclasses.asdict(got)}
+        elif f.name == "compute_dtype":
+            got, want = str(got).split(".")[-1], jnp.dtype(want).name
+        assert got == want, f.name
 
 
 def test_readtext_host_rectify_matches_jax_engine(cover_u8):

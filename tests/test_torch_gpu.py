@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on a card.
+"""The port's CUDA kernels against their plain versions, and its device
+paths (beam, labels, stream, batcher, auto-crop, wire) against the CPU, on
+a card.
 
 Every test here is marked ``gpu`` and skips where no CUDA card is present.
 The file imports nothing of JAX, so it runs on a machine without it:
@@ -109,3 +111,94 @@ def test_cuda_labels_match_cpu(cuda_device, max_iters):
     assert torch.equal(card.cpu(), cpu) and card_steps == cpu_steps
     for a, b in zip(component_stats_device(card, 24, score.to(cuda_device)), component_stats_device(cpu, 24, score)):
         assert torch.equal(a.cpu(), b)
+
+
+def _small_card_engine(device):
+    from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
+    from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
+
+    return OCREngine.from_checkpoint(
+        os.path.join(ROOT, "checkpoints", "craft.npz"), os.path.join(ROOT, "checkpoints", "crnn.npz"),
+        EngineConfig(canvases=(CanvasSpec(704, 512), CanvasSpec(512, 704)), compute_dtype=torch.float32),
+        device=device,
+    )
+
+
+def _cover_batches():
+    rng = np.random.default_rng(14)
+    covers = [load_rgb(os.path.join(ROOT, "data", "real", "covers", f"book{i}.png")) for i in (2, 4)]
+    return [covers, [], [covers[1][::-1].copy()], [covers[0], rng.integers(0, 256, (600, 800), np.uint8), covers[1]]]
+
+
+def _same_results(a, b):
+    return len(a) == len(b) and all(
+        len(x) == len(y) and all(tx == ty and np.abs(qx - qy).max() <= 1e-5 and abs(cx - cy) <= 1e-5
+                                 for (qx, tx, cx), (qy, ty, cy) in zip(x, y))
+        for x, y in zip(a, b))
+
+
+def test_cuda_stream_matches_batch(cuda_device):
+    """``readtext_stream`` on the card: each batch equals ``readtext_batch``."""
+    engine = _small_card_engine(cuda_device)
+    batches = _cover_batches()
+    want = [engine.readtext_batch(b) for b in batches]
+    got = list(engine.readtext_stream(iter(batches)))
+    assert got[1] == [] and sum(len(r) for b in got for r in b) > 0
+    assert all(_same_results(g, w) for g, w in zip(got, want))
+
+
+def test_cuda_batcher_results_equal_their_batches(cuda_device):
+    """``BatchingOCR`` over a card engine under 4 threads: fewer batches than
+    requests, and each result equals ``readtext_batch`` on the batch it was
+    coalesced into."""
+    import threading
+
+    from bbocr_tpu_torch.runtime.batching import BatchingOCR
+
+    engine = _small_card_engine(cuda_device)
+    photos = [p for b in _cover_batches() for p in b]
+    batches = []
+    inner = engine.readtext_batch
+
+    def recording(images):
+        out = inner(images)
+        batches.append((list(images), out))
+        return out
+
+    engine.readtext_batch = recording
+    wrapped = BatchingOCR(engine, max_wait_ms=20)
+    got = {}
+
+    def worker(t):
+        for i, photo in enumerate(photos):
+            got[(t, i)] = (photo, wrapped.readtext(photo, timeout=300))
+
+    threads = [threading.Thread(target=worker, args=(t,)) for t in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wrapped.close()
+    assert not any(t.is_alive() for t in threads)
+    assert wrapped.images_processed == 4 * len(photos) and wrapped.batches_dispatched < 4 * len(photos)
+    for images, out in batches:
+        assert all(_same_results([a], [b]) for a, b in zip(inner(images), out))
+
+
+def test_cuda_autocrop_and_wire_match_cpu(cuda_device):
+    """The auto-crop mask and rectangle, the pooled canvas and the wire
+    unpacking on the card equal the CPU's."""
+    from bbocr_tpu_torch.preprocess import auto_crop_text_region, text_mask
+    from bbocr_tpu_torch.runtime.wire import pack_canvas, unpack_widen
+
+    pre, _ = preprocess_for_book_cover(load_rgb(os.path.join(ROOT, "data", "real", "covers", "book4.png")), device="cpu")
+    for a, b in zip(text_mask(pre.to(cuda_device)), text_mask(pre)):
+        assert torch.equal(a.cpu(), b)
+    assert auto_crop_text_region(pre.to(cuda_device), 128) == auto_crop_text_region(pre, 128)
+    canvas = np.random.default_rng(15).integers(0, 256, (2, 64, 96)).astype(np.uint8)
+    for bits in (1, 2, 4, 8):
+        packed = torch.from_numpy(pack_canvas(canvas, bits))
+        assert torch.equal(unpack_widen(packed.to(cuda_device), bits).cpu(), unpack_widen(packed, bits))
+    x = torch.from_numpy(canvas.astype(np.float32))
+    pooled = x.to(cuda_device).reshape(2, 16, 4, 24, 4).mean((2, 4)).cpu()
+    assert torch.equal(pooled, x.reshape(2, 16, 4, 24, 4).mean((2, 4)))

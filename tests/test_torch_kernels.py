@@ -18,9 +18,10 @@ import jax.numpy as jnp
 from bbocr_tpu import ops as jops
 from bbocr_tpu.kernels import blur3_u8_pallas, enhance_u8_pallas, unsharp_u8_pallas
 from bbocr_tpu.preprocess.chain import _chain_gray_pallas
+from bbocr_tpu.preprocess.chain import preprocess_for_book_cover_batch as jax_preprocess_batch
 from bbocr_tpu_torch import kernels, ops
 from bbocr_tpu_torch.io import load_rgb
-from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
+from bbocr_tpu_torch.preprocess import preprocess_for_book_cover, preprocess_for_book_cover_batch
 from bbocr_tpu_torch.preprocess.chain import PLAIN_OPS, _preprocess
 
 torch.set_num_threads(2)
@@ -139,6 +140,24 @@ def test_chain_matches_pallas_chain_on_book1():
     ref = np.asarray(_chain_gray_pallas(gray, 1312, 1050))
     got, steps = preprocess_for_book_cover(rgb, device="cpu")
     assert got.shape == (1312, 1050) and len(steps) == 8
+    assert np.mean(got.numpy() != ref) <= 1e-3
+
+
+@pytest.mark.parametrize("color", [True, False], ids=["rgb", "gray"])
+def test_batched_chain_matches_jax_batch(color):
+    """``preprocess_for_book_cover_batch`` over (3, H, W[, 3]): each image
+    equal to the single-image chain, and within the 0.1 % of pixels of
+    ``test_chain_matches_pallas_chain_on_book1`` of the JAX batched chain
+    with its Pallas kernels."""
+    rgb = load_rgb(BOOK1)[200:296, 300:372]
+    imgs = np.stack([rgb, rgb[::-1], 255 - rgb]).astype(np.float32)
+    if not color:
+        imgs = imgs.mean(-1).round()
+    got = preprocess_for_book_cover_batch(imgs, device="cpu")
+    assert got.shape == (3, 144, 108)
+    for img, out in zip(imgs, got):
+        assert torch.equal(out, preprocess_for_book_cover(img, device="cpu")[0])
+    ref = np.asarray(jax_preprocess_batch(jnp.asarray(imgs), use_pallas=True))
     assert np.mean(got.numpy() != ref) <= 1e-3
 
 
