@@ -1,5 +1,6 @@
 from bbocr_tpu_torch.decode.boxes import (
     DetectionParams,
+    extract_boxes,
     extract_boxes_masked,
     extract_boxes_masked_plain,
     group_lines,
@@ -12,6 +13,7 @@ from bbocr_tpu_torch.decode.ctc import ctc_greedy_decode
 __all__ = [
     "DetectionParams",
     "ctc_greedy_decode",
+    "extract_boxes",
     "extract_boxes_masked",
     "extract_boxes_masked_plain",
     "group_lines",

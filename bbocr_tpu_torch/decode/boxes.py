@@ -135,6 +135,23 @@ def _order_clockwise(box: np.ndarray) -> np.ndarray:
     return box
 
 
+def extract_boxes(
+    region: np.ndarray,
+    affinity: np.ndarray,
+    params: DetectionParams = DetectionParams(),
+) -> List[np.ndarray]:
+    """(H, W) float32 score maps -> list of (4, 2) float quads (map coords).
+
+    The CRAFT recipe: components of
+    (region > low_text) | (affinity > link_threshold), kept when population
+    >= min_size and max region score >= text_threshold, expanded by
+    niter = sqrt(area * min(w, h) / (w * h)) * 2. Counterpart of the JAX
+    package's float-map entry; the engines use :func:`extract_boxes_masked`.
+    """
+    mask = (region > params.low_text) | (affinity > params.link_threshold)
+    return _extract_boxes_from_mask(mask, region, params)
+
+
 def extract_boxes_masked(
     mask: np.ndarray,
     region_q: np.ndarray,

@@ -23,9 +23,11 @@ are downscaled with Pillow's BILINEAR resample, reproduced in numpy
 (``ops.pil_bilinear_resize_u8``).
 
 Knobs whose modules are not ported yet raise ``NotImplementedError``
-naming their ROADMAP.md item: LLM backends and traces. Errors propagate:
-unlike the JAX extractor, a failed OCR call or re-read is not turned into
-empty text or a skipped re-read.
+naming their ROADMAP.md item: LLM backends and traces. As in the JAX
+extractor, an image whose OCR raises prints ``OCR failed: ...`` and adds no
+text, a raising low-confidence re-read keeps the first reading, and a
+raising ISBN re-read adds no ISBN line (the re-read inside
+``read_with_rotations`` has no handler, in JAX either).
 """
 
 from __future__ import annotations
@@ -158,7 +160,10 @@ class BookMetadataExtractor:
         else:
             res = eng.readtext_fast(image) if use_fast else eng.readtext(image)
             if reread_ths > 0 and res:
-                res = eng.reread_low_conf(image, res, conf_ths=reread_ths)
+                try:
+                    res = eng.reread_low_conf(image, res, conf_ths=reread_ths)
+                except Exception:  # keep the first reading, as the JAX extractor does
+                    pass
         from bbocr_tpu_torch.decode import group_lines
 
         infos = []
@@ -183,7 +188,10 @@ class BookMetadataExtractor:
         # line. As in the JAX extractor, the re-read takes the unrotated
         # image with the chosen reading's quads.
         if self.isbn_reread and res and hasattr(eng, "reread_isbn"):
-            isbn = eng.reread_isbn(image, res)
+            try:
+                isbn = eng.reread_isbn(image, res)
+            except Exception:  # no ISBN line, as in the JAX extractor
+                isbn = None
             if isbn:
                 lines = [ln for ln in lines if "isbn" not in ln.lower()]
                 lines.append(f"ISBN {isbn}")
@@ -218,7 +226,11 @@ class BookMetadataExtractor:
             if not (0 <= idx < len(images)):
                 continue
             proc = self._process_image(rgbs[idx])
-            text, lines, infos, n = self._ocr_text(proc["final"], idx)
+            try:
+                text, lines, infos, n = self._ocr_text(proc["final"], idx)
+            except Exception as e:  # the photo adds no text, as in the JAX extractor
+                print(f"OCR failed: {e}")
+                text, lines, infos, n = "", [], [], 0
             ocr_lines.extend(lines)
             ocr_line_infos.extend(infos)
             n_boxes += n

@@ -1,6 +1,8 @@
 """CRNN recognizer (VGG features -> two BiLSTMs -> CTC head), torch modules.
 
-Counterpart of ``bbocr_tpu/models/crnn.py::CRNN`` with ``norm="group"``.
+Counterpart of ``bbocr_tpu/models/crnn.py::CRNN``: ``norm="group"``, the
+engine's form, or ``norm="batch"``, the published layout's BatchNorm on
+running statistics for imported EasyOCR weights (which no engine builds).
 A 32-px-high gray crop collapses to T = W/4 - 1 frames of 256 features.
 The forward follows the JAX engine's compiled recognizer where its
 arithmetic is known (``models/layers.py``): products summed in XLA's
@@ -18,7 +20,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bbocr_tpu_torch.models.layers import Conv2d, GroupNorm, Linear, conv2d_xla_order, dot_xla_order, group_norm_of_conv
+from bbocr_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    GroupNorm,
+    Linear,
+    conv2d_xla_order,
+    dot_xla_order,
+    group_norm_of_conv,
+)
 
 INPUT_HEIGHT = 32  # recognizer crop height, fixed by the architecture
 
@@ -26,7 +36,7 @@ INPUT_HEIGHT = 32  # recognizer crop height, fixed by the architecture
 class VGGFeatures(nn.Module):
     """(B, 1, 32, W) -> (B, T=W/4-1, out) sequence features."""
 
-    def __init__(self, out: int = 256):
+    def __init__(self, out: int = 256, norm: str = "group"):
         super().__init__()
         oc = [out // 8, out // 4, out // 2, out]
         self.convs = nn.ModuleList([
@@ -38,7 +48,7 @@ class VGGFeatures(nn.Module):
             Conv2d(oc[3], oc[3], 3, padding=1, bias=False),
             Conv2d(oc[3], oc[3], 2),
         ])
-        self.norms = nn.ModuleList([GroupNorm(32, oc[3]) for _ in range(2)])
+        self.norms = nn.ModuleList([BatchNorm(oc[3]) if norm == "batch" else GroupNorm(32, oc[3]) for _ in range(2)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -48,7 +58,10 @@ class VGGFeatures(nn.Module):
             return y + layer.bias[:, None, None]
 
         def conv_norm(x, layer, norm):
-            return group_norm_of_conv(conv2d_xla_order(x, layer.weight, layer.padding[0]), norm, dt)
+            y = conv2d_xla_order(x, layer.weight, layer.padding[0])
+            if isinstance(norm, BatchNorm):  # flax op by op: the rounded product, normalised
+                return norm(y.to(dt))
+            return group_norm_of_conv(y, norm, dt)
 
         c = self.convs
         x = F.max_pool2d(F.relu(conv(x, c[0])), 2)  # 16 x W/2
@@ -129,9 +142,9 @@ class BiLSTM(nn.Module):
 class CRNN(nn.Module):
     """(B, 1, 32, W) grayscale in [-1, 1] -> (B, T, num_classes) float32 logits."""
 
-    def __init__(self, num_classes: int, hidden: int = 256, features: int = 256):
+    def __init__(self, num_classes: int, hidden: int = 256, features: int = 256, norm: str = "group"):
         super().__init__()
-        self.features = VGGFeatures(features)
+        self.features = VGGFeatures(features, norm)
         self.rnn0 = BiLSTM(features, hidden, hidden)
         self.rnn1 = BiLSTM(hidden, hidden, hidden)
         self.head = Linear(hidden, num_classes)

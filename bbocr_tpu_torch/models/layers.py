@@ -5,6 +5,8 @@ port's bfloat16 forward follows it:
 
 - ``nn.GroupNorm`` keeps float32 ``scale`` and ``bias`` (``param_dtype``),
   normalises in float32 and rounds to bfloat16 once, at the end;
+  ``nn.BatchNorm(use_running_average=True)`` likewise, on its float32
+  running statistics;
 - ``nn.Conv`` and ``nn.Dense`` round the product to bfloat16 and then add
   the bfloat16 bias (``y += bias``): two roundings, where ``nn.Conv2d``
   adds the bias inside its float32 accumulator and rounds once.
@@ -16,7 +18,7 @@ are normalised as XLA fuses them (``group_norm_of_conv``).
 
 In float32 these layers compute exactly what their ``torch.nn`` bases do.
 ``cast_for_compute`` casts a model to the compute type and leaves the
-GroupNorm parameters in float32.
+parameters and statistics of the normalisations in float32.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 GROUPNORM_EPS = 1e-6  # flax.linen.GroupNorm's default
+BATCHNORM_EPS = 1e-5  # flax.linen.BatchNorm's default
 
 
 class GroupNorm(nn.GroupNorm):
@@ -39,6 +42,28 @@ class GroupNorm(nn.GroupNorm):
         # The input is cast because PyTorch's CUDA group_norm refuses a
         # bfloat16 input with float32 parameters (its CPU one accepts it).
         return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm on running statistics, as flax's
+    ``nn.BatchNorm(use_running_average=True)`` computes it
+    (``flax.linen.normalization._normalize``): in float32,
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, rounded once to the
+    input's type. ``weight`` and ``bias`` are flax's ``scale`` and ``bias``,
+    the buffers its ``batch_stats``."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.eps = BATCHNORM_EPS
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias[:, None, None]).to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -133,8 +158,8 @@ def group_norm_of_conv(y: torch.Tensor, norm: nn.GroupNorm, dtype: torch.dtype) 
 
 
 def cast_for_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast ``model``'s parameters to ``dtype``, GroupNorm's excepted."""
+    """Cast ``model``'s parameters to ``dtype``, the normalisations' excepted."""
     for module in model.modules():
-        if not isinstance(module, nn.GroupNorm):
+        if not isinstance(module, (nn.GroupNorm, BatchNorm)):
             module._apply(lambda t: t.to(dtype) if t.is_floating_point() else t, recurse=False)
     return model

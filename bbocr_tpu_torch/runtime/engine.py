@@ -6,7 +6,8 @@ Counterpart of ``bbocr_tpu/runtime/engine.py::OCREngine`` on one device:
   fixed-point bilinear resize), uploaded as uint8 or, with ``wire_bits``
   below 8, dithered and bit-packed (``runtime/wire.py``) and unpacked on
   the device;
-- detect: CRAFT with the folded gray stem (or the unfolded RGB stem),
+- detect: CRAFT (or CRAFTLite) with the folded gray stem, or the unfolded
+  RGB stem (always for the published layout),
   optionally on an average-pooled canvas (``detect_pool``) and with a
   second, coarse pass over the same canvas (``detect_coarse``), thresholds
   applied on the device, two uint8 planes downloaded per canvas;
@@ -24,8 +25,10 @@ Besides ``readtext``: the three-stage pipeline over a stream of batches
 ``runtime/fastpath.py``), the full-resolution re-reads (``lines_logits``,
 ``reread_low_conf`` with the device beam, ``reread_isbn`` with the
 digit-biased host beam), ``warmup`` and the text helpers ``read_joined``
-and ``read_lines``. Checkpoints of layouts that are not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+and ``read_lines``. The detector follows the checkpoint's layout: CRAFT,
+``CRAFTLite`` or the published ``CRAFTPublished`` (``type(engine.craft)``).
+The letterbox fills and host warps run on a process-wide pool of 8
+threads, as in the JAX engine; the box extraction runs in a loop.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -52,6 +56,8 @@ from bbocr_tpu_torch.decode.beam_device import ctc_beam_decode_device
 from bbocr_tpu_torch.models import (
     CRAFT,
     CRNN,
+    CRAFTLite,
+    CRAFTPublished,
     EN_CHARSET,
     Charset,
     cast_for_compute,
@@ -140,18 +146,25 @@ class OCREngine:
         config = self.config
         if config.wire_bits not in (1, 2, 4, 8):
             raise ValueError(f"wire_bits must be 1, 2, 4, or 8 (got {config.wire_bits})")
-        tree = craft_params.get("params", {})
-        if "slice1" in tree or "LiteBackbone_0" in tree:
-            raise NotImplementedError(
-                "published-layout CRAFT and CRAFTLite are not ported yet: see ROADMAP.md Queue 1"
-            )
         self.device = torch.device(device)
         self.charset = charset
         dtype = config.compute_dtype
-        # With the folded stem the detector takes the raw gray canvas: gray->RGB,
-        # /255 and the ImageNet normalization are folded into its first conv.
-        self.craft = CRAFT(gray_input=config.fold_gray_stem)
-        stem_params = fold_gray_stem(craft_params) if config.fold_gray_stem else craft_params
+        # Parameter-tree sniffing, as in the JAX engine: an imported published
+        # tree ("slice1") runs the published dataflow, a "LiteBackbone_0"
+        # tree the slim detector, any other tree CRAFT. With the folded stem
+        # (not for the published layout) the detector takes the raw gray
+        # canvas: gray->RGB, /255 and the ImageNet normalization are folded
+        # into its first conv.
+        tree = craft_params.get("params", {})
+        published = "slice1" in tree
+        self._fold = bool(config.fold_gray_stem) and not published
+        if published:
+            self.craft = CRAFTPublished()
+        elif "LiteBackbone_0" in tree:
+            self.craft = CRAFTLite(gray_input=self._fold)
+        else:
+            self.craft = CRAFT(gray_input=self._fold)
+        stem_params = fold_gray_stem(craft_params) if self._fold else craft_params
         self.craft.load_state_dict(craft_state_dict(stem_params), strict=True)
         cast_for_compute(self.craft.to(self.device), dtype).eval()
         self.crnn = CRNN(num_classes=charset.num_classes)
@@ -189,7 +202,7 @@ class OCREngine:
         compute type: the gray plane for the folded stem, else gray repeated
         to RGB, divided by 255 and ImageNet-normalized."""
         x = gray255[:, None]
-        if not self.config.fold_gray_stem:
+        if not self._fold:
             x = (x.expand(-1, 3, -1, -1) / self._255 - self._mean) / self._std
         return x.to(self.config.compute_dtype)
 
@@ -393,12 +406,16 @@ class OCREngine:
                     # uint8 (or bit-packed) on the wire, real rows only;
                     # padded to the row menu and widened on the device
                     batch = np.zeros((len(idxs), canvas.height, canvas.width), np.uint8)
-                    for slot, i in enumerate(idxs):
+
+                    def fill(slot_i):  # mapped before the loop moves on
+                        slot, i = slot_i
                         g = grays[i]
                         scale, oh, ow = bucketing.letterbox_params(g.shape[0], g.shape[1], canvas)
                         scales[i] = scale
                         batch[slot, :oh, :ow] = _host_resize(g, oh, ow)
                         canvas_pos[i] = (key, slot)
+
+                    _host_map(fill, list(enumerate(idxs)))
                     raw = torch.from_numpy(pack_canvas(batch, cfg.wire_bits)).to(self.device)
                     rows = bucketing.pad_count(len(idxs), _ROW_MENU)
                     if rows > raw.shape[0]:
@@ -442,6 +459,9 @@ class OCREngine:
                 regions_q = regions_dev.cpu().numpy()
                 if coarse is not None:
                     coarse = (coarse[0].cpu().numpy(), coarse[1].cpu().numpy(), coarse[2])
+            # in a loop on this thread, unlike the JAX engine: the extraction's
+            # Python holds the GIL, and on the host pool it slowed the stream
+            # (PERF.md, Findings)
             with self.timers.stage("boxes"):
                 for slot, i in enumerate(idxs):
                     quads = quads_from(masks[slot], regions_q[slot], pool)
@@ -466,11 +486,15 @@ class OCREngine:
                 # each crop warped from the original gray at native detail,
                 # uploaded as uint8 and widened on the device
                 crop_buf = np.zeros((cap, INPUT_HEIGHT, bucket_w), np.uint8)
+
+                def warp(k_entry):  # mapped before the loop moves on
+                    k, (i, _, quad, true_w) = k_entry
+                    oq = np.asarray(quad, np.float64) / max(ctx["scales"][i], 1e-9)
+                    crop_buf[k] = host_warp_crop(
+                        ctx["grays"][i], oq, true_w, INPUT_HEIGHT, bucket_w, quad_to_rect_homography)
+
                 with self.timers.stage("rectify"):
-                    for k, (i, _, quad, true_w) in enumerate(entries):
-                        oq = np.asarray(quad, np.float64) / max(ctx["scales"][i], 1e-9)
-                        crop_buf[k] = host_warp_crop(
-                            ctx["grays"][i], oq, true_w, INPUT_HEIGHT, bucket_w, quad_to_rect_homography)
+                    _host_map(warp, list(enumerate(entries)))
                     all_crops = torch.from_numpy(crop_buf).to(self.device).to(torch.float32)
                 dispatched.append(self._recognize_dispatch(entries, list(range(len(entries))), all_crops, cap))
                 continue
@@ -719,6 +743,42 @@ def _contrast_stretch(crops: torch.Tensor, lo_pct: float = 10.0, hi_pct: float =
     span = torch.clamp(hi - lo, min=1.0)
     scale = torch.full_like(span, 255.0) / span  # one rounding: `255.0 / span` is 255 * (1 / span)
     return torch.clamp((crops - lo) * scale, 0.0, 255.0)
+
+
+_LETTERBOX_POOL = None
+_LETTERBOX_POOL_LOCK = threading.Lock()
+
+
+def _letterbox_pool() -> ThreadPoolExecutor:
+    """The process-wide pool of 8 host threads, made on first use, as the
+    JAX engine's ``_letterbox_pool``. Its tasks (a letterbox fill, one
+    crop's warp) submit nothing to it, so a stage thread of
+    ``readtext_stream`` that waits on its tasks while another stage
+    thread's tasks run cannot deadlock it. The C++ warp is a ``ctypes``
+    call and numpy's integer arithmetic and fancy indexing in
+    ``_host_resize`` run without the GIL for most of their time."""
+    global _LETTERBOX_POOL
+    with _LETTERBOX_POOL_LOCK:
+        if _LETTERBOX_POOL is None:
+            _LETTERBOX_POOL = ThreadPoolExecutor(max_workers=8)
+        return _LETTERBOX_POOL
+
+
+def _serial_map(fn, tasks: list) -> None:
+    """``fn`` over ``tasks`` in a loop on the calling thread."""
+    for task in tasks:
+        fn(task)
+
+
+def _host_map(fn, tasks: list) -> None:
+    """``fn`` over ``tasks`` on the host pool when there is more than one,
+    inline for one, as the JAX engine maps its host stages. Each task
+    writes only its own slot, so the results are the serial loop's
+    (``_serial_map``)."""
+    if len(tasks) > 1:
+        list(_letterbox_pool().map(fn, tasks))
+    else:
+        _serial_map(fn, tasks)
 
 
 # cv2 COLOR_RGB2GRAY fixed point: Y = (R*9798 + G*19235 + B*3735 + 2^14) >> 15

@@ -12,6 +12,12 @@ references for the PyTorch port.
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --shared-engine-route [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --autocrop [--canvas 640x480] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --engine-options [--canvas 416x320] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --evaluate-real \
+        [--dtype float32|bfloat16] [--canvas 416x320] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --evaluate-books \
+        [--dtype float32|bfloat16] [--canvas 416x320] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --layouts [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --threshold-witness [--out PATH]
 
 Default mode: the photo goes through ``_chain_gray_pallas`` and then
 ``OCREngine.readtext`` in the given compute type with the configuration the
@@ -92,6 +98,37 @@ With ``--canvas 416x320``: the same options on one 416x320 canvas over
 ``tests/data/engine_options_jax_f32_416x320.json``
 (``tests/test_torch_wire.py``).
 
+``--evaluate-real``: ``bbocr_tpu.cli.evaluate_real.evaluate_real`` over
+the 21 books of ``data/real/`` (29 photos, each read at the four rotations,
+then the low-confidence re-read), with its engine given the JAX default
+configuration in the chosen compute type (``OCREngine.from_checkpoint`` is
+replaced for the run). It writes the summary with each book's row
+(rotations, results, lines, scores, fields), timings aside, to
+``tests/data/evaluate_real_jax_f32.json`` (``_bf16``; ``chip_smoke.py``
+phase 10). With ``--canvas 416x320`` the engine has that one canvas and the
+run covers ``EVAL_REAL_SMALL`` (a cover, a one-photo and a two-photo book),
+to ``evaluate_real_jax_f32_416x320.json`` (``tests/test_torch_evaluate.py``).
+
+``--evaluate-books``: ``bbocr_tpu.cli.evaluate.evaluate_books`` over the 25
+ground-truthed books of ``books/`` through the no-engine extractor, its
+shared engine (wrapped in ``BatchingOCR``) given the JAX default
+configuration in the chosen compute type, to
+``tests/data/evaluate_books_jax_f32.json`` (``_bf16``; ``chip_smoke.py``
+phase 10). With ``--canvas 416x320``: the first two books on that one
+canvas, to ``evaluate_books_jax_f32_416x320.json``.
+
+``--layouts``: the seed and the parameter shapes (``params`` and
+``batch_stats``) of ``CRAFTLite`` and ``CRAFTPublished`` as flax builds
+them, to ``tests/data/layouts_jax_shapes.json``: ``chip_smoke.py`` phase
+10 builds engines of both layouts from those shapes and that seed.
+
+``--threshold-witness``: where the float32 readings of ``evaluate_real``
+differ (photos/5's ``IMG_9692.jpg`` turned by k = 3), both packages'
+float32 CRAFT score maps on the CPU for that canvas: the largest
+difference of each map, each map pixel whose detection mask differs with
+both packages' region and affinity values, and a 9x9 patch of both region
+maps around the first, to ``tests/data/threshold_witness_jax_f32.json``
+(``chip_smoke.py`` phase 10a reads the card's maps against it).
 ``--jpeg-digests``: the SHA-256 of Pillow's RGB decoding of every JPEG in
 ``books/`` and ``data/real/photos/``, with its shape, to
 ``tests/data/jpeg_pillow_sha256.json``; then each file is decoded again by
@@ -422,6 +459,160 @@ def engine_options(canvas) -> dict:
     return {"dtype": "float32", "image_shape": list(image.shape), "canvas": [spec.height, spec.width], "options": out}
 
 
+EVAL_REAL_SMALL = ("covers/book2", "photos/3", "photos/4")
+
+
+class _jax_config:
+    """Within the block, ``OCREngine.from_checkpoint`` of the JAX package
+    builds its engine with ``config`` (the caller's configuration ignored)."""
+
+    def __init__(self, config):
+        self.config = config
+
+    def __enter__(self):
+        from bbocr_tpu.runtime.engine import OCREngine
+
+        self.original = OCREngine.__dict__["from_checkpoint"]
+        config, original = self.config, self.original
+        OCREngine.from_checkpoint = classmethod(
+            lambda cls, craft, crnn, *_, **kw: original.__func__(cls, craft, crnn, config))
+
+    def __exit__(self, *exc):
+        from bbocr_tpu.runtime.engine import OCREngine
+
+        OCREngine.from_checkpoint = self.original
+
+
+def _default_config(dtype: str, canvas):
+    """The JAX ``EngineConfig()`` in ``dtype`` (``BB_OCR_*`` must be unset),
+    on one canvas when ``canvas`` is given."""
+    import jax.numpy as jnp
+
+    from bbocr_tpu.runtime.bucketing import CanvasSpec
+    from bbocr_tpu.runtime.engine import EngineConfig
+
+    knobs = [k for k in os.environ if k.startswith("BB_OCR_")]
+    if knobs:
+        raise SystemExit(f"unset {knobs}: the recording is of the default configuration")
+    extra = {"canvases": (CanvasSpec(*canvas),)} if canvas else {}
+    return EngineConfig(compute_dtype=getattr(jnp, dtype), **extra)
+
+
+def _untimed(summary: dict) -> dict:
+    summary.pop("total_seconds", None)
+    for row in summary.get("details", []):
+        row.pop("seconds", None)
+    return summary
+
+
+def evaluate_real_run(dtype: str, canvas) -> dict:
+    from bbocr_tpu.cli.evaluate_real import evaluate_real
+
+    with _jax_config(_default_config(dtype, canvas)):
+        summary = evaluate_real(
+            os.path.join(ROOT, "data", "real"),
+            craft=os.path.join(ROOT, "checkpoints", "craft.npz"),
+            crnn=os.path.join(ROOT, "checkpoints", "crnn.npz"),
+            books_filter=EVAL_REAL_SMALL if canvas else None,
+        )
+    print(json.dumps({k: v for k, v in summary.items() if k != "details"}))
+    return {"dtype": dtype, "canvas": canvas, **_untimed(summary)}
+
+
+def evaluate_books_run(dtype: str, canvas) -> dict:
+    from bbocr_tpu.cli.evaluate import evaluate_books
+    from bbocr_tpu.extract import extractor as jax_extractor
+
+    jax_extractor._ENGINE_CACHE.clear()
+    try:
+        with _jax_config(_default_config(dtype, canvas)):
+            summary = evaluate_books(os.path.join(ROOT, "books"), limit=2 if canvas else None)
+    finally:
+        engine = jax_extractor._ENGINE_CACHE.pop("engine", None)
+        if engine is not None and hasattr(engine, "close"):
+            engine.close()
+    print(json.dumps({k: v for k, v in summary.items() if k != "details"}))
+    return {"dtype": dtype, "canvas": canvas, **_untimed(summary)}
+
+
+LAYOUT_SEED = 11
+
+
+def layouts() -> dict:
+    """The flax parameter shapes of the two detector layouts."""
+    import jax
+    import jax.numpy as jnp
+
+    from bbocr_tpu.models.craft import CRAFTLite, CRAFTPublished
+
+    out = {"seed": LAYOUT_SEED}
+    for name, model in (("lite", CRAFTLite(dtype=jnp.float32)), ("published", CRAFTPublished(dtype=jnp.float32))):
+        tree = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))
+        out[name] = jax.tree_util.tree_map(lambda a: list(a.shape), dict(tree))
+    return out
+
+
+# photos/5's second photo, turned by k = 3: the rotation where the float32
+# readings of the two packages differ in one box (chip_smoke.py phase 10a)
+WITNESS_PHOTO = ("photos/5", "IMG_9692.jpg", 3)
+
+
+def threshold_witness() -> dict:
+    """Both packages' float32 CRAFT score maps (CPU) for the canvas that
+    ``evaluate_real`` gives ``WITNESS_PHOTO``: the largest difference of
+    each map, every map pixel whose detection mask differs, with both
+    packages' values there, and a 9x9 patch of both region maps around the
+    first such pixel."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from bbocr_tpu.cli.evaluate_real import _load_gray
+    from bbocr_tpu.runtime import bucketing
+    from bbocr_tpu.runtime.engine import EngineConfig, OCREngine, _host_resize, _to_gray_u8
+    from bbocr_tpu_torch.runtime import EngineConfig as PortConfig
+    from bbocr_tpu_torch.runtime import OCREngine as PortEngine
+
+    book, name, k = WITNESS_PHOTO
+    craft, crnn = (os.path.join(ROOT, "checkpoints", f) for f in ("craft.npz", "crnn.npz"))
+    gray = _to_gray_u8(np.rot90(_load_gray(os.path.join(ROOT, "data", "real", book, name)), k))
+    jax_engine = OCREngine.from_checkpoint(craft, crnn, EngineConfig(compute_dtype=jnp.float32))
+    canvas = bucketing.pick_canvas(gray.shape[0], gray.shape[1], jax_engine.config.canvases)
+    _, oh, ow = bucketing.letterbox_params(gray.shape[0], gray.shape[1], canvas)
+    batch = np.zeros((1, canvas.height, canvas.width), np.float32)
+    batch[0, :oh, :ow] = _host_resize(gray, oh, ow)
+    if not jax_engine._fold:
+        raise SystemExit("the witness is of the default folded gray stem")
+    jax_maps = np.asarray(jax.jit(jax_engine.craft_infer.apply)(jax_engine.craft_params, jnp.asarray(batch)[..., None]))[0]
+    jax_mask = np.asarray(jax_engine._detect(jax_engine.craft_params, jnp.asarray(batch), 1)[0])[0].astype(bool)
+    port = PortEngine.from_checkpoint(craft, crnn, PortConfig(compute_dtype=torch.float32), device="cpu")
+    with torch.no_grad():
+        port_maps = port.craft(port.craft_input(torch.from_numpy(batch))).numpy()[0].transpose(1, 2, 0)
+    det = jax_engine.config.detection
+    masks = [(m[..., 0] > det.low_text) | (m[..., 1] > det.link_threshold) for m in (port_maps, jax_maps)]
+    if not np.array_equal(masks[1], jax_mask):
+        raise SystemExit("the JAX maps' mask differs from the JAX engine's own detect")
+    pixels = np.argwhere(masks[0] != masks[1])
+    out = {
+        "book": book, "image": name, "k": k, "canvas": [canvas.height, canvas.width],
+        "map_shape": list(port_maps.shape[:2]), "low_text": det.low_text, "link_threshold": det.link_threshold,
+        "max_abs_diff_region": float(np.abs(port_maps[..., 0] - jax_maps[..., 0]).max()),
+        "max_abs_diff_affinity": float(np.abs(port_maps[..., 1] - jax_maps[..., 1]).max()),
+        "pixels": [{"y": int(y), "x": int(x), "port_region": float(port_maps[y, x, 0]),
+                    "jax_region": float(jax_maps[y, x, 0]), "port_affinity": float(port_maps[y, x, 1]),
+                    "jax_affinity": float(jax_maps[y, x, 1])} for y, x in pixels],
+    }
+    if len(pixels):
+        y, x = (int(v) for v in pixels[0])
+        window = (slice(max(y - 4, 0), y + 5), slice(max(x - 4, 0), x + 5), 0)
+        out["patch_origin"] = [window[0].start, window[1].start]
+        out["port_region_patch"] = port_maps[window].tolist()
+        out["jax_region_patch"] = jax_maps[window].tolist()
+    print(json.dumps({k: v for k, v in out.items() if not k.endswith("_patch")}))
+    return out
+
+
 def jpeg_digests() -> dict:
     import numpy as np
     from PIL import Image
@@ -456,8 +647,13 @@ def main() -> None:
     mode.add_argument("--shared-engine-route", action="store_true")
     mode.add_argument("--autocrop", action="store_true")
     mode.add_argument("--engine-options", action="store_true")
+    mode.add_argument("--evaluate-real", action="store_true")
+    mode.add_argument("--evaluate-books", action="store_true")
+    mode.add_argument("--layouts", action="store_true")
+    mode.add_argument("--threshold-witness", action="store_true")
     p.add_argument("--canvas", default=None,
-                   help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options)")
+                   help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options, "
+                        "--evaluate-real, --evaluate-books)")
     p.add_argument("--image", default=None)
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--out", default=None)
@@ -478,6 +674,18 @@ def main() -> None:
     elif args.engine_options:
         out = engine_options(canvas)
         out_path = args.out or os.path.join(data, f"engine_options_jax_f32{tail}.json")
+    elif args.evaluate_real:
+        out = evaluate_real_run(args.dtype, canvas)
+        out_path = args.out or os.path.join(data, f"evaluate_real_jax_{suffix}{tail}.json")
+    elif args.evaluate_books:
+        out = evaluate_books_run(args.dtype, canvas)
+        out_path = args.out or os.path.join(data, f"evaluate_books_jax_{suffix}{tail}.json")
+    elif args.layouts:
+        out = layouts()
+        out_path = args.out or os.path.join(data, "layouts_jax_shapes.json")
+    elif args.threshold_witness:
+        out = threshold_witness()
+        out_path = args.out or os.path.join(data, "threshold_witness_jax_f32.json")
     elif args.covers:
         out = covers_without_route()
         out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")
@@ -496,7 +704,7 @@ def main() -> None:
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
-    print(f"{len(out.get('texts', out.get('photos', out.get('options', out))))} entries -> {out_path}")
+    print(f"{len(out.get('texts', out.get('photos', out.get('options', out.get('details', out)))))} entries -> {out_path}")
 
 
 if __name__ == "__main__":

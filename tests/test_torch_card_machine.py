@@ -10,7 +10,9 @@ re-reads); then it imports ``chip_smoke`` without running its main. A
 second subprocess runs this slice's paths the same way: the CLI's extractor
 with no engine (the shared engine wrapped in ``BatchingOCR``) and the
 auto-crop, the pipelined stream, ``warmup``, and an engine with bit-packed
-canvases, the coarse pass and the unfolded stem.
+canvases, the coarse pass and the unfolded stem. A third runs the
+evaluation CLIs (``evaluate_real``, ``evaluate``, ``restructure``,
+``ab_summary``) and engines of the lite and published detector layouts.
 """
 
 import json
@@ -132,6 +134,49 @@ SLICE_SCRIPT = BLOCKER + textwrap.dedent(
 )
 
 
+EVAL_SCRIPT = BLOCKER + textwrap.dedent(
+    """
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(2)
+    from bbocr_tpu_torch.cli import ab_summary, evaluate, evaluate_real, restructure
+    from bbocr_tpu_torch.runtime import EngineConfig, OCREngine, bucketing
+    from bbocr_tpu_torch.utils.checkpoint import load_params
+    from chip_smoke import seeded_variables
+
+    bucketing.DEFAULT_CANVASES = (bucketing.CanvasSpec(288, 224),)
+    out_path = sys.argv[1]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        evaluate_real.main(["--books", "covers/book2", "--device", "cpu", "--out", out_path])
+        from_checkpoint = OCREngine.from_checkpoint.__func__
+        OCREngine.from_checkpoint = classmethod(lambda cls, craft, crnn, *_, **kw: from_checkpoint(
+            cls, craft, crnn, EngineConfig(compute_dtype=torch.float32), **kw))
+        rc = evaluate.main(["--books-dir", "books", "--limit", "1", "--device", "cpu"])
+        OCREngine.from_checkpoint = classmethod(from_checkpoint)
+        restructure.main(["--eval", out_path])
+        ab_summary.main([out_path, "data/real/eval_r2_final.json"])
+    with open(out_path) as f:
+        real = json.load(f)
+    shapes = json.load(open("tests/data/layouts_jax_shapes.json"))
+    crnn = load_params("checkpoints/crnn.npz")
+    detectors = []
+    for craft in (load_params("checkpoints/candidates/craft_lite_raw.npz"),
+                  seeded_variables(shapes["published"], shapes["seed"])):
+        engine = OCREngine(craft, crnn, EngineConfig(compute_dtype=torch.float32), device="cpu")
+        engine.readtext(np.full((200, 160), 128, np.uint8))
+        detectors.append(type(engine.craft).__name__)
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+    print(json.dumps({"books": real["books"], "rotations": real["details"][0]["rotations"], "rc": rc,
+                      "printed": printed.getvalue(), "detectors": detectors, "loaded": loaded}))
+    """
+)
+
+
 def _run_blocked(script, *args):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BB_OCR_BATCHING")}
     env["PYTHONPATH"] = ROOT
@@ -195,3 +240,15 @@ def test_chip_smoke_fails_alone(tmp_path):
     proc = _run_smoke(tmp_path, str(tmp_path / "chip_smoke.py"))
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_evaluation_runs_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
+    """``evaluate_real`` on a cover (gray loaded without Pillow), then
+    ``evaluate`` on a book through the shared engine, ``restructure`` and
+    ``ab_summary`` over the artifact, and engines of the lite and published
+    layouts, all with the imports of the card's machine."""
+    out = _run_blocked(EVAL_SCRIPT, str(tmp_path / "eval_real.json"))
+    assert out["loaded"] == [] and out["books"] == 1 and len(out["rotations"]) == 1 and out["rc"] == 0
+    assert "tpu_mean_word_recall" in out["printed"] and "replayed" in out["printed"]
+    assert "eval_real" in out["printed"] and '"per_field"' in out["printed"]
+    assert out["detectors"] == ["CRAFTLite", "CRAFTPublished"]

@@ -250,9 +250,12 @@ def test_extractor_auto_rotate_takes_the_rotation_route(auto_rotate, shape, read
     ids=["published", "lite"],
 )
 def test_engine_refuses_unported_options(craft_tree):
-    """The published CRAFT layout and CRAFTLite are not ported yet."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        OCREngine({"params": craft_tree}, {"params": {}}, EngineConfig(), device="cpu")
+    """The published CRAFT layout and CRAFTLite are ported: a tree of
+    either layout is sniffed to its detector, whose strict loading refuses
+    an incomplete tree (naming that detector's parameters)."""
+    name = "slice1.convs.0.weight" if "slice1" in craft_tree else "backbone.stem.weight"
+    with pytest.raises(RuntimeError, match=name.replace(".", r"\.")):
+        OCREngine({"params": craft_tree}, {"params": {}}, EngineConfig(fold_gray_stem=False), device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -383,11 +386,15 @@ def test_extractor_default_route_calls_as_jax(shape):
 
 @pytest.mark.parametrize("fail", ["reread", "isbn"])
 def test_extractor_rereads_propagate_errors(fail):
-    """Unlike the JAX extractor, which skips a failed re-read, the port
-    raises: a broken re-read cannot pass unseen."""
+    """A raising re-read does not reach the caller, as in the JAX extractor:
+    a failed low-confidence re-read keeps the first reading, a failed ISBN
+    re-read adds no ISBN line; the same calls and the same text as JAX."""
     from bbocr_tpu.extract.extractor import BookMetadataExtractor as JaxExtractor
 
     image = np.zeros((800, 600), np.float32)
-    JaxExtractor(llm_backend="heuristic", engine=_RouteEngine(fail))._ocr_text(image, 0)
-    with pytest.raises(RuntimeError, match="failed"):
-        BookMetadataExtractor(llm_backend="heuristic", device="cpu", engine=_RouteEngine(fail))._ocr_text(image, 0)
+    ours, ref = _RouteEngine(fail), _RouteEngine(fail)
+    exp = JaxExtractor(llm_backend="heuristic", engine=ref)._ocr_text(image, 0)
+    got = BookMetadataExtractor(llm_backend="heuristic", device="cpu", engine=ours)._ocr_text(image, 0)
+    assert ours.calls == ref.calls and got[:3] == exp
+    assert (got[1][-1] == "ISBN 9780316769488") == (fail != "isbn")
+    assert ("978O3I6769488" in " ".join(info[0] for info in got[2])) == (fail == "reread")
