@@ -91,15 +91,13 @@ def evaluate_books(
 ) -> Dict[str, Any]:
     """The JAX function's summary (``per_field``, ``mean_cer``, ``details``
     with one row per book) over the books of ``books_dir`` that have a
-    ``ground_truth.json``, in name order. ``ocr_engine`` takes only the
-    default (the CRAFT + CRNN engine)."""
-    if ocr_engine != "tpu":
-        raise NotImplementedError(
-            f"ocr_engine={ocr_engine!r} is not ported yet: see ROADMAP.md Queue 1 item 11")
+    ``ground_truth.json``, in name order. ``ocr_engine``: ``"tpu"`` (the
+    CRAFT + CRNN engine) or ``"tesseract"`` (the extractor's escape hatch,
+    which needs ``pytesseract``)."""
     from bbocr_tpu_torch.extract import BookMetadataExtractor
 
     extractor = BookMetadataExtractor(
-        llm_backend=llm_backend, warm_model=False, fast_single=fast_single, device=device,
+        llm_backend=llm_backend, ocr_engine=ocr_engine, warm_model=False, fast_single=fast_single, device=device,
     )
     book_ids = sorted(
         d for d in os.listdir(books_dir)

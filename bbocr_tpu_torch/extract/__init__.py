@@ -1,5 +1,6 @@
 from bbocr_tpu_torch.extract.extractor import BookMetadataExtractor
 from bbocr_tpu_torch.extract.heuristics import heuristic_extract, heuristic_extract_lines
+from bbocr_tpu_torch.extract.jsonrepair import repair_and_parse
 from bbocr_tpu_torch.extract.prompt import PROMPT_TEMPLATE, build_prompt
 from bbocr_tpu_torch.extract.schema import (
     METADATA_SCHEMA,
@@ -18,6 +19,7 @@ __all__ = [
     "empty_metadata",
     "heuristic_extract",
     "heuristic_extract_lines",
+    "repair_and_parse",
     "validate_metadata",
     "validate_schema",
 ]

@@ -87,11 +87,14 @@ def _check(value: Any, schema: Dict[str, Any], path: str) -> None:
     if types is not None:
         names = [types] if isinstance(types, str) else list(types)
         if not any(_is_type(value, n) for n in names):
-            raise SchemaError(f"{path or '<root>'}: {value!r} is not of type {names}")
+            # the first line is jsonschema's message for the same error
+            raise SchemaError(
+                f"{value!r} is not of type {', '.join(repr(n) for n in names)}\n\nOn instance{path}:\n    {value!r}"
+            )
     if isinstance(value, dict):
         for key, sub in schema.get("properties", {}).items():
             if key in value:
-                _check(value[key], sub, f"{path}.{key}" if path else key)
+                _check(value[key], sub, f"{path}[{key!r}]")
     if isinstance(value, list) and "items" in schema:
         for i, item in enumerate(value):
             _check(item, schema["items"], f"{path}[{i}]")

@@ -1,4 +1,4 @@
-"""Image loading without Pillow.
+"""Image loading and encoding without Pillow.
 
 ``read_png`` decodes 8-bit gray, RGB and RGBA PNGs that are not interlaced
 with the standard library's ``zlib`` and numpy. The five scanline filters
@@ -8,16 +8,26 @@ decoded at once whatever filter each row uses. Baseline JPEGs are decoded
 by the C++ decoder of ``native/jpeg.py``, bit for bit as Pillow decodes
 them. Other images (progressive JPEG, palette or 16-bit PNG, other formats)
 go through Pillow, imported only then.
+
+The encoding side reproduces what the JAX extractor asks of Pillow:
+``pil_thumbnail_u8`` is ``Image.thumbnail`` (Pillow 12: the aspect-keeping
+size, ``reduce`` by whole factors while the source is over twice the
+target, then BICUBIC over the reduced box), ``encode_png`` writes a PNG
+whose pixels are the array's, and ``encode_jpeg`` is the C++ baseline
+encoder of ``native/jpeg.py``, byte-equal with Pillow's JPEG.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
+from typing import Optional, Tuple
 
 import numpy as np
 
-from bbocr_tpu_torch.native.jpeg import UnsupportedJPEG, read_jpeg
+from bbocr_tpu_torch.native.jpeg import UnsupportedJPEG, encode_rgb, read_jpeg
+from bbocr_tpu_torch.ops.resize import pil_reduce_u8, pil_resample_u8
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}  # PNG color type -> samples per pixel
@@ -56,7 +66,11 @@ def _unfilter(raw: np.ndarray, h: int, w: int, c: int) -> np.ndarray:
 def read_png(path: str) -> np.ndarray:
     """(H, W) uint8 for gray PNGs, (H, W, 3) or (H, W, 4) for RGB / RGBA."""
     with open(path, "rb") as f:
-        blob = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(blob: bytes, path: str = "PNG") -> np.ndarray:
+    """``read_png`` of PNG bytes (``path`` names them in errors)."""
     if not blob.startswith(_PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     pos = len(_PNG_SIGNATURE)
@@ -120,3 +134,81 @@ def load_rgb(path_or_array) -> np.ndarray:
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     return arr[..., :3].astype(np.uint8)
+
+
+def as_u8_image(arr) -> np.ndarray:
+    """``np.clip(arr, 0, 255).astype(np.uint8)``: the array the JAX
+    extractor hands to ``Image.fromarray``."""
+    return np.clip(np.asarray(arr), 0, 255).astype(np.uint8)
+
+
+def thumbnail_size(w: int, h: int, max_dim: int) -> Optional[Tuple[int, int]]:
+    """``Image.thumbnail((max_dim, max_dim))``'s target (width, height), or
+    None when the image already fits. Pillow 12's ``preserve_aspect_ratio``:
+    of the floor and the ceiling of the scaled side, the one whose aspect
+    is closer to the source's, at least 1."""
+    x = y = math.floor(max_dim)
+    if x >= w and y >= h:
+        return None
+
+    def round_aspect(number, key):
+        return max(min(math.floor(number), math.ceil(number), key=key), 1)
+
+    aspect = w / h
+    if x / y >= aspect:
+        x = round_aspect(y * aspect, key=lambda n: abs(aspect - n / y))
+    else:
+        y = round_aspect(x / aspect, key=lambda n: 0 if n == 0 else abs(aspect - x / n))
+    return x, y
+
+
+def pil_thumbnail_u8(arr: np.ndarray, max_dim: int) -> np.ndarray:
+    """``Image.fromarray(arr).thumbnail((max_dim, max_dim))`` on a (H, W) or
+    (H, W, 3) uint8 array, bit for bit (Pillow 12, ``reducing_gap=2.0``).
+
+    Where the source is at least twice the target times 2 along an axis it
+    is first reduced by ``int(ratio / 2)`` there (block means, the last
+    block partial), and BICUBIC then resamples the reduced image over the
+    source's box in the reduced coordinates."""
+    if arr.dtype != np.uint8:
+        raise ValueError(f"pil_thumbnail_u8 takes uint8, got {arr.dtype}")
+    h, w = arr.shape[:2]
+    size = thumbnail_size(w, h, max_dim)
+    if size is None or size == (w, h):
+        return arr.copy()
+    tw, th = size
+    fx = int(w / tw / 2.0) or 1
+    fy = int(h / th / 2.0) or 1
+    if fx == 1 and fy == 1:
+        return pil_resample_u8(arr, tw, th, "bicubic")
+    # the reduce box is the whole image: the bicubic support never reaches
+    # past it
+    return pil_resample_u8(pil_reduce_u8(arr, fx, fy), tw, th, "bicubic", (0.0, 0.0, w / fx, h / fy))
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """(H, W) gray or (H, W, 3) RGB uint8 -> PNG bytes (8-bit, no filter,
+    ``zlib`` level 6). The pixels equal Pillow's PNG of the same array; the
+    bytes need not."""
+    if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (arr.ndim == 3 and arr.shape[2] != 3):
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 3) uint8, got {arr.dtype} {arr.shape}")
+    h, w = arr.shape[:2]
+    rows = np.ascontiguousarray(arr).reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if arr.ndim == 2 else 2, 0, 0, 0)
+    return (_PNG_SIGNATURE + _png_chunk(b"IHDR", header) + _png_chunk(b"IDAT", zlib.compress(raw, 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def encode_jpeg(arr: np.ndarray, quality: int) -> bytes:
+    """(H, W) gray or (H, W, 3) RGB uint8 -> the bytes of
+    ``Image.fromarray(arr).convert("RGB").save(buf, "JPEG", quality=quality)``
+    (gray is repeated into RGB first, as ``convert`` does)."""
+    if arr.dtype != np.uint8 or arr.ndim not in (2, 3):
+        raise ValueError(f"encode_jpeg takes (H, W) or (H, W, 3) uint8, got {arr.dtype} {arr.shape}")
+    rgb = np.repeat(arr[..., None], 3, axis=2) if arr.ndim == 2 else arr
+    return encode_rgb(rgb, quality)

@@ -47,9 +47,12 @@ def build_library(source: str, stem: str, extra_flags: tuple = ()) -> str:
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        ["g++", *flags, "-o", tmp, source], capture_output=True, text=True, timeout=300
-    )
+    try:
+        proc = subprocess.run(
+            ["g++", *flags, "-o", tmp, source], capture_output=True, text=True, timeout=300
+        )
+    except FileNotFoundError as e:
+        raise RuntimeError(f"g++ is not installed: it builds {os.path.basename(source)}") from e
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, path)

@@ -19,7 +19,12 @@ from bbocr_tpu_torch.ops.morphology import close as morph_close
 from bbocr_tpu_torch.ops.morphology import dilate, erode
 from bbocr_tpu_torch.ops.morphology import open_ as morph_open
 from bbocr_tpu_torch.ops.pil_enhance import adjust_brightness, adjust_contrast, rounded_mean
-from bbocr_tpu_torch.ops.resize import pil_bilinear_resize_u8, resize_bicubic, resize_bilinear
+from bbocr_tpu_torch.ops.resize import (
+    pil_reduce_u8,
+    pil_resample_u8,
+    resize_bicubic,
+    resize_bilinear,
+)
 from bbocr_tpu_torch.ops.threshold import adaptive_threshold
 
 __all__ = [
@@ -43,7 +48,8 @@ __all__ = [
     "adjust_brightness",
     "adjust_contrast",
     "rounded_mean",
-    "pil_bilinear_resize_u8",
+    "pil_reduce_u8",
+    "pil_resample_u8",
     "resize_bicubic",
     "resize_bilinear",
     "adaptive_threshold",

@@ -8,7 +8,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 
 1. prints the card's name and power limit;
 2. builds the CUDA kernels (nvcc), the C++ labeler and the C++ JPEG
-   decoder (g++) in parallel from the sources in the checkout, and prints
+   decoder and encoder (g++) in parallel from the sources in the checkout, and prints
    the build seconds;
 3. holds each kernel bit-exact against its plain PyTorch version on the
    card at nine shapes (the slice's (1, 1312, 1050) from the chain itself,
@@ -115,7 +115,31 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    float32 score maps at the full canvas (1408x1024) against the same
    engine's on the CPU, within 1e-3 of their largest magnitude, then one
    ``readtext`` each with the detect stage's time beside the default
-   CRAFT's.
+   CRAFT's;
+11. the LLM backends, the encoders and the host CLIs, every check failing
+   the run: (a) the model inputs' JPEGs (``_encode_jpeg_b64`` at 2000 px,
+   quality 88 and 3200 px, quality 95) and the trace's PNG previews
+   (800 px) of the photos of ``books/1`` to ``books/3``, two camera
+   photos, ``book1.png`` and book1 as the port's chain preprocesses it on
+   the CPU (``tests/data/book1_preprocessed_port_f32.png``; the card's own
+   preprocessed book1 and its JPEGs are compared and printed), each input's
+   and output's SHA-256 equal to what the JAX extractor's Pillow calls give
+   (``tests/data/encode_jax_sha256.json``), ms per encode printed; (b) the
+   no-engine extractor on ``books/1`` to ``books/3`` for the ``ollama``,
+   ``openai`` and ``gemini`` backends through a fake HTTP session with the
+   reference's canned replies (fenced JSON, echoed placeholders, a Gemini
+   404 then its renamed model), ``capture_trace=True``, its shared engine
+   given a float32 configuration, every kernel launch count set to 0 just
+   before and read just after: each request's prompt, URL, headers,
+   timeout and body, the cover's JPEG, the metadata and the trace's steps
+   equal the JAX package's CPU run (``tests/data/llm_route_jax_f32.json``);
+   the OCR'd photos' JPEG digests printed beside JAX's, then the bfloat16
+   run's differences; any exception in an LLM call fails the run; (c)
+   ``process_book --llm-backend ollama`` with the canned session writes its
+   JSON, ``batch --llm-backend heuristic`` over three books with 1 and 2
+   workers in float32 (all succeed, fields equal), ``smoke --books-dir books`` prints
+   ``SMOKE PASS``, ``profile_engine --photos 4 --repeat 2`` prints its
+   stage times.
 
 Phases 4 to 7 run the engine of the first slices (device warps from the
 canvas, greedy decode), as their references were recorded; phases 8 and 9
@@ -199,6 +223,11 @@ LAYOUTS = os.path.join(ROOT, "tests", "data", "layouts_jax_shapes.json")
 # Both packages' float32 score maps on the CPU where their evaluate_real
 # readings differ (scripts/torch_port_reference.py --threshold-witness)
 WITNESS = os.path.join(ROOT, "tests", "data", "threshold_witness_jax_f32.json")
+# What the JAX extractor's Pillow calls make of fixed inputs, and its LLM route
+# on books/1 to books/3 through canned replies, float32
+# (scripts/torch_port_reference.py --encode / --llm-route)
+ENCODE_REFERENCE = os.path.join(ROOT, "tests", "data", "encode_jax_sha256.json")
+LLM_ROUTE = os.path.join(ROOT, "tests", "data", "llm_route_jax_f32.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SOURCE = "bbocr_tpu_torch/csrc/preprocess.cu"
@@ -316,13 +345,15 @@ def ptxas_report(build_log: str) -> list:
 
 def build_all() -> float:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        futures = [pool.submit(kernel_build.build), pool.submit(native_loader.build), pool.submit(native_jpeg.build)]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        futures = [pool.submit(kernel_build.build), pool.submit(native_loader.build), pool.submit(native_jpeg.build),
+                   pool.submit(native_jpeg.build_encoder)]
         for f in futures:
             f.result()
     kernel_build.load()
     native_loader.load()
     native_jpeg.load()
+    native_jpeg.load_encoder()
     seconds = time.perf_counter() - t0
     for line in ptxas_report(kernel_build.build_log):
         print(f"  ptxas: {line}", flush=True)
@@ -1605,6 +1636,267 @@ def check_layouts(dev, card, size=(1408, 1024)) -> None:
               f"{json.dumps({k: round(v['total_s'] * 1e3, 2) for k, v in stages.items()})} ms; {card}", flush=True)
 
 
+def sha256(data) -> str:
+    return hashlib.sha256(data.tobytes() if isinstance(data, np.ndarray) else data).hexdigest()
+
+
+def encode_input(rel: str) -> np.ndarray:
+    """An input of ``tests/data/encode_jax_sha256.json``: a repository photo
+    as the port loads it, or book1 as the port's chain preprocessed it on
+    the CPU (gray, float32)."""
+    from bbocr_tpu_torch.io import read_png
+
+    if rel.startswith("tests/data/"):
+        return read_png(os.path.join(ROOT, rel)).astype(np.float32)
+    return load_rgb(os.path.join(ROOT, rel))
+
+
+def check_encoders(dev, card) -> None:
+    """11(a): the model inputs' JPEGs and the trace's PNG previews, without
+    Pillow, against the SHA-256 of what the JAX extractor's Pillow calls
+    make of the same inputs; ms per encode."""
+    import base64
+
+    from bbocr_tpu_torch.io import decode_png
+
+    with open(ENCODE_REFERENCE) as f:
+        ref = json.load(f)
+    settings = [tuple(v) for v in ref["settings"]]
+    encode, preview = BookMetadataExtractor._encode_jpeg_b64, BookMetadataExtractor._to_data_url
+    times = {f"jpeg {d} px q{q}": [] for d, q in settings}
+    times["png preview 800 px"] = []
+    for rel, want in ref["inputs"].items():
+        arr = encode_input(rel)
+        if list(arr.shape) != want["shape"] or sha256(np.ascontiguousarray(arr)) != want["sha256"]:
+            fail(f"{rel}: the input differs from the one the reference encoded")
+        for (d, q), digest in zip(settings, want["jpeg_sha256"]):
+            t0 = time.perf_counter()
+            blob = base64.b64decode(encode(arr, d, q))
+            times[f"jpeg {d} px q{q}"].append((time.perf_counter() - t0) * 1e3)
+            if sha256(blob) != digest:
+                fail(f"{rel}: the JPEG at {d} px, quality {q} differs from Pillow's (JAX extractor)")
+        t0 = time.perf_counter()
+        url = preview(arr)
+        times["png preview 800 px"].append((time.perf_counter() - t0) * 1e3)
+        pixels = decode_png(base64.b64decode(url.split(",", 1)[1]))
+        if list(pixels.shape) != want["preview_shape"] or sha256(np.ascontiguousarray(pixels)) != want["preview_sha256"]:
+            fail(f"{rel}: the PNG preview's pixels differ from the JAX extractor's")
+    from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
+
+    on_card = preprocess_for_book_cover(load_rgb(BOOK1), device=dev)[0].cpu().numpy()
+    cpu = encode_input("tests/data/book1_preprocessed_port_f32.png")
+    digests = [sha256(base64.b64decode(encode(on_card, d, q))) for d, q in settings]
+    want = ref["inputs"]["tests/data/book1_preprocessed_port_f32.png"]["jpeg_sha256"]
+    print(f"book1 preprocessed on the card: {int((on_card != cpu).sum())} pixels differ from the CPU chain's "
+          f"(the bicubic resize's sums); its JPEGs {'equal' if digests == want else 'differ from'} "
+          f"JAX's of the CPU array (not required)", flush=True)
+    shown = {k: f"median {statistics.median(v):.3f} ms, max {max(v):.3f} ms" for k, v in times.items()}
+    print(f"encoders: {len(ref['inputs'])} inputs, every JPEG byte-equal and every preview pixel-equal to the "
+          f"JAX extractor's; per encode (host, thumbnail included) {json.dumps(shown)}; {card}", flush=True)
+
+
+@contextlib.contextmanager
+def watch_llm_calls():
+    """Within the block every LLM call must answer: an exception in a
+    client's ``generate`` (which Ollama's retries would swallow) or in the
+    extractor's ``_call_llm`` is recorded and fails the run at the next
+    phase."""
+    from bbocr_tpu_torch.llm import client
+
+    targets = [(BookMetadataExtractor, "_call_llm")] + [
+        (getattr(client, n), "generate") for n in ("OllamaClient", "OpenAIClient", "GeminiClient")]
+    saved = [(cls, name, cls.__dict__[name]) for cls, name in targets]
+    for cls, name, fn in saved:
+        setattr(cls, name, _recorded(f"{cls.__name__}.{name}", fn))
+    try:
+        yield
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+@contextlib.contextmanager
+def llm_env(env: dict):
+    keys = list(env) + ["OPENAI_BASE_URL", "GOOGLE_API_KEY", "GOOGLE_API_BASE"]
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def llm_runs(ref: dict, dev, backends) -> tuple:
+    """The no-engine extractor on the reference's books for each backend,
+    through the reference's canned session, with ``capture_trace=True``:
+    ({backend: {book: record}}, seconds per book, host ms of the encoders)."""
+    from scripts.torch_port_reference import CannedSession, book_images, route_record
+
+    runs, seconds, encode_ms = {}, [], []
+    encode = BookMetadataExtractor.__dict__["_encode_jpeg_b64"]
+
+    def timed_encode(*args):
+        t0 = time.perf_counter()
+        out = encode.__func__(*args)
+        encode_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    BookMetadataExtractor._encode_jpeg_b64 = staticmethod(timed_encode)
+    try:
+        for backend in backends:
+            ext = BookMetadataExtractor(llm_backend=backend, model=ref["models"][backend], warm_model=False, device=dev)
+            runs[backend] = {}
+            for book in ref["books"]:
+                ext.session = CannedSession(ref["replies"], ref["models"]["gemini"])
+                t0 = time.perf_counter()
+                meta = ext.extract_metadata_from_images(book_images(book), capture_trace=True)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                runs[backend][book] = route_record(meta, ext.session)
+    finally:
+        BookMetadataExtractor._encode_jpeg_b64 = encode
+    return runs, seconds, encode_ms
+
+
+def route_differences(got: dict, want: dict) -> tuple:
+    """(required parts that differ, the OCR'd photos' JPEG digests that
+    differ) of one book's run against the reference's."""
+    bad = [k for k in ("meta", "steps") if got[k] != want[k]]
+    if len(got["posts"]) != len(want["posts"]):
+        return bad + ["posts"], []
+    for i, (g, w) in enumerate(zip(got["posts"], want["posts"])):
+        bad += [f"post {i} {k}" for k in ("url", "headers", "timeout", "body", "prompt") if g[k] != w[k]]
+        if g["image_sha256"][:1] != w["image_sha256"][:1]:
+            bad.append(f"post {i} cover JPEG")
+    g, w = got["posts"][-1]["image_sha256"], want["posts"][-1]["image_sha256"]
+    return bad, [(j, a, b) for j, (a, b) in enumerate(zip(g, w)) if j and a != b]
+
+
+def check_llm_route(dev, card) -> dict:
+    """11(b): the LLM route of the no-engine extractor (preprocessing
+    kernels, the shared engine in ``BatchingOCR``, rotations, the JPEG
+    encoder, the trace) for ``ollama``, ``openai`` and ``gemini`` on
+    ``books/1`` to ``books/3``, float32: each prompt, the cover's JPEG, the
+    metadata and the trace's steps equal the JAX package's CPU run, every
+    kernel launch count set to 0 just before and read just after; the OCR'd
+    photos' JPEG digests printed; then bfloat16's differences printed."""
+    if os.environ.get("BB_OCR_BATCHING") is not None:
+        fail("BB_OCR_BATCHING is set: phase 11 runs the default wrapping")
+    with open(LLM_ROUTE) as f:
+        ref = json.load(f)
+    backends = list(ref["runs"])
+    with llm_env(ref["env"]), watch_llm_calls():
+        with float32_engines():
+            kernels.reset_launches()
+            runs, seconds, encode_ms = llm_runs(ref, dev, backends)
+            launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+        failed = []
+        for backend in backends:
+            for book in ref["books"]:
+                bad, jpegs = route_differences(runs[backend][book], ref["runs"][backend][book])
+                meta = runs[backend][book]["meta"]
+                print(f"  {backend} book {book}: {'equal' if not bad else 'DIFFERS in ' + ', '.join(bad)}; "
+                      f"{json.dumps({k: v for k, v in meta.items() if not k.startswith('_')})}", flush=True)
+                for j, got_sha, want_sha in jpegs:
+                    print(f"    photo {j}'s JPEG (OCR'd, preprocessed on the card) {got_sha} against "
+                          f"JAX's {want_sha}: differs (not required)", flush=True)
+                if bad:
+                    failed.append((backend, book, bad))
+                    print(f"    got  {json.dumps(runs[backend][book])[:3000]}\n    JAX  "
+                          f"{json.dumps(ref['runs'][backend][book])[:3000]}", flush=True)
+        print(f"LLM route, float32: {len(seconds)} book runs, {statistics.median(seconds):.3f} s per book "
+              f"(median; max {max(seconds):.3f}), JPEG encodes {len(encode_ms)} at median "
+              f"{statistics.median(encode_ms):.3f} ms (max {max(encode_ms):.3f}); launches {json.dumps(launches)}; "
+              f"{card}", flush=True)
+        if failed:
+            fail(f"the LLM route differs from the JAX package's: {failed}")
+        for name, count in launches.items():
+            if count < 1:
+                fail(f"kernel {name} was not launched by the LLM route")
+        close_shared_engines()
+        runs16, seconds16, _ = llm_runs(ref, dev, backends[:1])
+        close_shared_engines()
+    for book in ref["books"]:
+        bad, jpegs = route_differences(runs16[backends[0]][book], ref["runs"][backends[0]][book])
+        print(f"  bfloat16 {backends[0]} book {book}: against the JAX float32 run "
+              f"{'equal' if not bad else 'differs in ' + ', '.join(bad)}; {len(jpegs)} OCR'd JPEGs differ", flush=True)
+    print(f"LLM route, bfloat16: {statistics.median(seconds16):.3f} s per book (median); {card}", flush=True)
+    return launches
+
+
+def check_host_clis(card) -> None:
+    """11(c): ``process_book`` on the default Ollama backend through a
+    canned session, ``batch`` on the heuristic backend over three books
+    with 1 and 2 workers, ``smoke --books-dir books``, ``profile_engine``."""
+    import io
+    import shutil
+    import tempfile
+
+    from bbocr_tpu_torch.cli import batch, process_book, profile_engine, smoke
+    from bbocr_tpu_torch.extract import extractor as extractor_module
+    from scripts.torch_port_reference import CannedSession
+
+    with open(LLM_ROUTE) as f:
+        ref = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    made = extractor_module._new_http_session
+    sessions = []
+    extractor_module._new_http_session = lambda: sessions.append(
+        CannedSession(ref["replies"], ref["models"]["gemini"])) or sessions[-1]
+    try:
+        with llm_env(ref["env"]), watch_llm_calls():
+            t0 = time.perf_counter()
+            process_book.main(["1", "--llm-backend", "ollama", "--output-dir", os.path.join(tmp, "pb")])
+            with open(os.path.join(tmp, "pb", "book_1_enhanced.json")) as f:
+                saved = json.load(f)
+            if saved["title"] != "Fenced Title" or len(sessions[-1].posts) != 2:
+                fail(f"process_book --llm-backend ollama wrote {saved.get('title')!r} after "
+                     f"{len(sessions[-1].posts)} requests (warm-up and one generate expected)")
+            print(f"process_book --llm-backend ollama: {time.perf_counter() - t0:.3f} s; {card}", flush=True)
+        fields = []
+        for workers in (1, 2):
+            out = os.path.join(tmp, f"batch{workers}")
+            t0 = time.perf_counter()
+            # float32: with 2 workers BatchingOCR coalesces both books' photos
+            # into one batch, and a bfloat16 batch of 2 reads otherwise than
+            # two of 1 (PERF.md, PR 12)
+            with float32_engines():
+                summary = batch.main(["--books-dir", BOOKS_DIR, "--book-ids", "1", "2", "3", "--max-workers",
+                                      str(workers), "--llm-backend", "heuristic", "--output-dir", out])
+            if summary["succeeded"] != 3 or summary["failed"]:
+                fail(f"batch with {workers} workers: {json.dumps(summary['results'])}")
+            books = {}
+            for b in ("1", "2", "3"):
+                with open(os.path.join(out, f"book_{b}_enhanced.json")) as f:
+                    books[b] = {k: v for k, v in json.load(f).items() if not k.startswith("_")}
+            fields.append(books)
+            print(f"batch --max-workers {workers}: 3 books in {time.perf_counter() - t0:.3f} s; {card}", flush=True)
+        if fields[0] != fields[1]:
+            fail(f"batch: the fields differ between 1 and 2 workers: {fields}")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = smoke.main(["--books-dir", BOOKS_DIR, "--llm-backend", "heuristic"])
+        if rc != 0 or "SMOKE PASS" not in printed.getvalue():
+            fail(f"smoke --books-dir books: rc {rc}: {printed.getvalue()[-2000:]}")
+        print("smoke --books-dir books: SMOKE PASS", flush=True)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            profile_engine.main(["--photos", "4", "--repeat", "2"])
+        lines = printed.getvalue().splitlines()
+        if len(lines) != 7 or "stages" not in json.loads(lines[1]):
+            fail(f"profile_engine printed {lines}")
+        print("profile_engine --photos 4 --repeat 2:\n  " + "\n  ".join(lines) + f"\n  {card}", flush=True)
+    finally:
+        extractor_module._new_http_session = made
+        close_shared_engines()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
@@ -1715,12 +2007,21 @@ def main() -> int:
         report[name]["launches_evaluate_books"] = count
     phase("phase 10c: the lite and published detector layouts")
     check_layouts(dev, card)
+
+    phase("phase 11a: the JPEG and PNG encoders against Pillow's output")
+    check_encoders(dev, card)
+    phase("phase 11b: the LLM route (ollama, openai, gemini) through canned replies, float32")
+    for name, count in check_llm_route(dev, card).items():
+        report[name]["launches_llm_route"] = count
+    phase("phase 11c: the host CLIs")
+    check_host_clis(card)
     phase("end: the kernels' line and the result")
 
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed",
-             "launches_default_route", "launches_shared_route", "launches_autocrop_route", "launches_evaluate_books"]
+             "launches_default_route", "launches_shared_route", "launches_autocrop_route", "launches_evaluate_books",
+             "launches_llm_route"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

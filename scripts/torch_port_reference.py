@@ -18,6 +18,8 @@ references for the PyTorch port.
         [--dtype float32|bfloat16] [--canvas 416x320] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --layouts [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --threshold-witness [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --encode [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --llm-route [--out PATH]
 
 Default mode: the photo goes through ``_chain_gray_pallas`` and then
 ``OCREngine.readtext`` in the given compute type with the configuration the
@@ -129,6 +131,30 @@ difference of each map, each map pixel whose detection mask differs with
 both packages' region and affinity values, and a 9x9 patch of both region
 maps around the first, to ``tests/data/threshold_witness_jax_f32.json``
 (``chip_smoke.py`` phase 10a reads the card's maps against it).
+``--encode``: what the JAX extractor's Pillow calls make of fixed inputs:
+the photos of ``books/1`` to ``books/3``, two camera photos of
+``data/real/photos/``, ``data/real/covers/book1.png``, and book1 as the
+port's float32 chain preprocesses it on the CPU, written to
+``tests/data/book1_preprocessed_port_f32.png`` (the card's chain differs
+from the CPU's on a few pixels of the bicubic resize, so the card encodes
+this file's pixels). For each input the SHA-256 of the
+array, of ``_encode_jpeg_b64``'s JPEG at the cover's and the other photos'
+settings (2000 px at quality 88, 3200 px at 95), and of the pixels of the
+``_to_data_url`` preview (an 800 px ``thumbnail``, PNG) decoded by Pillow,
+to ``tests/data/encode_jax_sha256.json`` (``chip_smoke.py`` phase 11a).
+
+``--llm-route``: the JAX extractor with no ``engine`` argument (its shared
+engine in ``BatchingOCR``, given the JAX default configuration in float32)
+on ``books/1`` to ``books/3`` with ``capture_trace=True``, for the
+``ollama``, ``openai`` and ``gemini`` backends through a recording fake
+HTTP session with canned replies (fenced JSON; echoed prompt
+placeholders; a Gemini 404 on the requested model, then the renamed
+one). The replies and, per backend and book, each request (URL, headers,
+timeout, the body without prompt and images, the prompt, the SHA-256 of
+each JPEG sent), the metadata (``engine_timings`` aside, no trace) and
+the trace's steps (previews aside), to ``tests/data/llm_route_jax_f32.json``
+(``chip_smoke.py`` phase 11b).
+
 ``--jpeg-digests``: the SHA-256 of Pillow's RGB decoding of every JPEG in
 ``books/`` and ``data/real/photos/``, with its shape, to
 ``tests/data/jpeg_pillow_sha256.json``; then each file is decoded again by
@@ -637,6 +663,148 @@ def jpeg_digests() -> dict:
     return digests
 
 
+ENCODE_SETTINGS = ((2000, 88), (3200, 95))  # the extractor's cover and other photos
+ENCODE_PHOTOS = [f"books/{b}/IMG_000{i}.jpg" for b in (1, 2, 3) for i in range(3)] + [
+    "data/real/photos/3/IMG_9687.jpg", "data/real/photos/10/IMG_9703.jpg", "data/real/covers/book1.png"]
+PREPROCESSED_BOOK1 = "tests/data/book1_preprocessed_port_f32.png"
+
+
+def _sha(data) -> str:
+    import numpy as np
+
+    return hashlib.sha256(data.tobytes() if isinstance(data, np.ndarray) else data).hexdigest()
+
+
+def encode_reference() -> dict:
+    import base64
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from bbocr_tpu.extract.extractor import BookMetadataExtractor
+    from bbocr_tpu_torch.io import load_rgb
+    from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
+
+    torch.set_num_threads(2)
+    pre = preprocess_for_book_cover(load_rgb(os.path.join(ROOT, "data", "real", "covers", "book1.png")), device="cpu")[0]
+    Image.fromarray(pre.numpy().astype(np.uint8)).save(os.path.join(ROOT, PREPROCESSED_BOOK1), optimize=True)
+    out = {"settings": [list(s) for s in ENCODE_SETTINGS], "inputs": {}}
+    for rel in ENCODE_PHOTOS + [PREPROCESSED_BOOK1]:
+        arr = BookMetadataExtractor._load_rgb(os.path.join(ROOT, rel))
+        if rel == PREPROCESSED_BOOK1:  # gray float32, as the extractor holds a preprocessed photo
+            arr = np.asarray(Image.open(os.path.join(ROOT, rel)), np.float32)
+        url = BookMetadataExtractor._to_data_url(arr)
+        preview = np.asarray(Image.open(io.BytesIO(base64.b64decode(url.split(",", 1)[1]))))
+        out["inputs"][rel] = {
+            "shape": list(arr.shape), "dtype": str(arr.dtype), "sha256": _sha(np.ascontiguousarray(arr)),
+            "jpeg_sha256": [_sha(base64.b64decode(BookMetadataExtractor._encode_jpeg_b64(arr, d, q)))
+                            for d, q in ENCODE_SETTINGS],
+            "preview_shape": list(preview.shape), "preview_sha256": _sha(np.ascontiguousarray(preview)),
+        }
+        print(rel, out["inputs"][rel]["shape"], "->", out["inputs"][rel]["preview_shape"])
+    return out
+
+
+LLM_BOOKS = ["1", "2", "3"]
+LLM_MODELS = {"ollama": "gemma3:4b", "openai": "gpt-4o", "gemini": "gemini-1.5-flash"}
+LLM_REPLIES = {
+    "ollama": '```json\n{"title": "Fenced Title", "authors": ["A. Writer"], "year": "1994", "isbn_13": null}\n```',
+    "openai": ('{"title": "Echoed Title", "subtitle": "string | null", "authors": ["string", "..."] | [], '
+               '"publisher": "string | null", "year": "YYYY | null", "page_count": "integer | null", '
+               '"price": {"currency": "string | null", "amount": "float | null"}}'),
+    "gemini": 'Here it is: ```json\n{"title": "Gemini Title", "categories": ["Fiction"]}\n``` done',
+}
+LLM_ENV = {"OPENAI_API_KEY": "sk-test", "GEMINI_API_KEY": "g-test"}
+
+
+class CannedSession:
+    """The fake HTTP session of the LLM-route references: answers each
+    backend with its canned reply (Gemini: 404 for the requested model
+    name, then 200) and records every post."""
+
+    def __init__(self, replies: dict, gemini_missing: str):
+        self.replies, self.gemini_missing, self.posts = replies, gemini_missing, []
+
+    def post(self, url, json=None, headers=None, timeout=None):
+        self.posts.append((url, json, headers, timeout))
+        if "/api/generate" in url:
+            status, payload = 200, {"response": self.replies["ollama"]}
+        elif "/chat/completions" in url:
+            status, payload = 200, {"choices": [{"message": {"content": self.replies["openai"]}}],
+                                    "usage": {"prompt_tokens": 1500, "completion_tokens": 90}}
+        elif f"/models/{self.gemini_missing}:" in url:
+            status, payload = 404, {}
+        else:
+            status, payload = 200, {"candidates": [{"content": {"parts": [{"text": self.replies["gemini"]}]}}],
+                                    "usageMetadata": {"promptTokenCount": 1400, "candidatesTokenCount": 70}}
+        return type("Reply", (), {"status_code": status, "text": "", "json": lambda self: payload})()
+
+
+def summarize_post(post) -> dict:
+    """A recorded request: URL (no query), headers, timeout, the body
+    without its prompt and images, the prompt, and each JPEG's SHA-256."""
+    import base64
+    import copy
+
+    url, body, headers, timeout = post
+    body = copy.deepcopy(body)
+    if "/api/generate" in url:
+        prompt, images = body.pop("prompt"), body.pop("images", [])
+    elif "/chat/completions" in url:
+        content = body["messages"][0].pop("content")
+        prompt, images = content[0]["text"], [c["image_url"]["url"].split(",", 1)[1] for c in content[1:]]
+    else:
+        parts = body["contents"][0].pop("parts")
+        prompt, images = parts[0]["text"], [p["inline_data"]["data"] for p in parts[1:]]
+    return {"url": url.split("?")[0], "headers": headers, "timeout": list(timeout), "body": body, "prompt": prompt,
+            "image_sha256": [_sha(base64.b64decode(b)) for b in images]}
+
+
+def route_record(meta: dict, session) -> dict:
+    meta = dict(meta)
+    trace = meta.pop("_trace")
+    info = dict(meta.pop("_processing_info"))
+    info.pop("engine_timings", None)
+    steps = [{k: v for k, v in step.items() if k != "images"} for step in trace["steps"]]
+    return {"meta": {**meta, "_processing_info": info}, "steps": steps,
+            "posts": [summarize_post(p) for p in session.posts]}
+
+
+def book_images(book: str) -> list:
+    directory = os.path.join(ROOT, "books", book)
+    return [os.path.join(directory, f) for f in sorted(os.listdir(directory)) if f.lower().endswith(".jpg")]
+
+
+def llm_route() -> dict:
+    from bbocr_tpu.extract import extractor as jax_extractor
+
+    os.environ.update(LLM_ENV)
+    for key in ("OPENAI_BASE_URL", "GOOGLE_API_KEY", "GOOGLE_API_BASE"):
+        os.environ.pop(key, None)
+    runs = {}
+    jax_extractor._ENGINE_CACHE.clear()
+    try:
+        with _jax_config(_default_config("float32", None)):
+            for backend, model in LLM_MODELS.items():
+                ext = jax_extractor.BookMetadataExtractor(llm_backend=backend, model=model, warm_model=False)
+                runs[backend] = {}
+                for book in LLM_BOOKS:
+                    ext.session = CannedSession(LLM_REPLIES, LLM_MODELS["gemini"])
+                    t0 = time.perf_counter()
+                    meta = ext.extract_metadata_from_images(book_images(book), capture_trace=True)
+                    runs[backend][book] = route_record(meta, ext.session)
+                    print(f"{backend} book {book}: {time.perf_counter() - t0:.1f} s, "
+                          f"{json.dumps({k: v for k, v in meta.items() if not k.startswith('_')})}")
+    finally:
+        engine = jax_extractor._ENGINE_CACHE.pop("engine", None)
+        if engine is not None and hasattr(engine, "close"):
+            engine.close()
+    return {"dtype": "float32", "books": LLM_BOOKS, "models": LLM_MODELS, "replies": LLM_REPLIES, "env": LLM_ENV,
+            "runs": runs}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -651,6 +819,8 @@ def main() -> None:
     mode.add_argument("--evaluate-books", action="store_true")
     mode.add_argument("--layouts", action="store_true")
     mode.add_argument("--threshold-witness", action="store_true")
+    mode.add_argument("--encode", action="store_true")
+    mode.add_argument("--llm-route", action="store_true")
     p.add_argument("--canvas", default=None,
                    help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options, "
                         "--evaluate-real, --evaluate-books)")
@@ -686,6 +856,12 @@ def main() -> None:
     elif args.threshold_witness:
         out = threshold_witness()
         out_path = args.out or os.path.join(data, "threshold_witness_jax_f32.json")
+    elif args.encode:
+        out = encode_reference()
+        out_path = args.out or os.path.join(data, "encode_jax_sha256.json")
+    elif args.llm_route:
+        out = llm_route()
+        out_path = args.out or os.path.join(data, "llm_route_jax_f32.json")
     elif args.covers:
         out = covers_without_route()
         out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")

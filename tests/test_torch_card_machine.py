@@ -12,7 +12,11 @@ with no engine (the shared engine wrapped in ``BatchingOCR``) and the
 auto-crop, the pipelined stream, ``warmup``, and an engine with bit-packed
 canvases, the coarse pass and the unfolded stem. A third runs the
 evaluation CLIs (``evaluate_real``, ``evaluate``, ``restructure``,
-``ab_summary``) and engines of the lite and published detector layouts.
+``ab_summary``) and engines of the lite and published detector layouts. A
+fourth, with ``pytesseract`` blocked as well, runs the LLM route with a
+session passed in (and without one, where it must raise naming
+``requests``), the encoders, and the host CLIs ``process_book``, ``batch``
+and ``smoke`` over ``books/``, ``compare_ocr`` and ``profile_engine``.
 """
 
 import json
@@ -33,7 +37,7 @@ BLOCKER = textwrap.dedent(
     import json
     import sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "bbocr_tpu", "PIL", "cv2", "jsonschema", "requests"}
+    BLOCKED = {"jax", "jaxlib", "flax", "bbocr_tpu", "PIL", "cv2", "jsonschema", "requests", "pytesseract"}
 
     class Blocker(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -177,6 +181,72 @@ EVAL_SCRIPT = BLOCKER + textwrap.dedent(
 )
 
 
+LLM_SCRIPT = BLOCKER + textwrap.dedent(
+    """
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(2)
+    from bbocr_tpu_torch.cli import batch, compare_ocr, process_book, profile_engine, smoke
+    from bbocr_tpu_torch.extract import BookMetadataExtractor
+    from bbocr_tpu_torch.io import encode_jpeg, encode_png, load_rgb, pil_thumbnail_u8
+    from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
+    from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
+
+    SMALL = EngineConfig(canvases=(CanvasSpec(288, 224),), compute_dtype=torch.float32)
+    from_checkpoint = OCREngine.from_checkpoint.__func__
+    OCREngine.from_checkpoint = classmethod(lambda cls, craft, crnn, *_, **kw: from_checkpoint(
+        cls, craft, crnn, SMALL, **kw))
+
+    class Reply:
+        status_code, text = 200, ""
+
+        def json(self):
+            return {"response": '```json\\n{"title": "T", "year": "YYYY | null"}\\n```'}
+
+    class Session:
+        posts = []
+
+        def post(self, url, json=None, headers=None, timeout=None):
+            self.posts.append(url)
+            return Reply()
+
+    tmp = sys.argv[1]
+    photos = [np.ascontiguousarray(load_rgb(f"books/1/IMG_000{i}.jpg")[:256, :192]) for i in range(3)]
+    session = Session()
+    ext = BookMetadataExtractor(device="cpu", session=session)
+    meta = ext.extract_metadata_from_images(photos, capture_trace=True)
+    try:
+        BookMetadataExtractor(device="cpu", warm_model=False).extract_metadata_from_images(photos[:1])
+        no_session = "returned"
+    except ImportError as e:
+        no_session = str(e)
+    photo = load_rgb("books/1/IMG_0001.jpg")
+    thumb = pil_thumbnail_u8(photo, 300)
+    sizes = [len(encode_jpeg(thumb, 88)), len(encode_png(thumb))]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        process_book.main(["1", "--books-dir", "books", "--llm-backend", "heuristic", "--device", "cpu",
+                           "--output-dir", os.path.join(tmp, "pb")])
+        summary = batch.main(["--books-dir", "books", "--book-ids", "1", "2", "--max-workers", "2",
+                              "--llm-backend", "heuristic", "--device", "cpu",
+                              "--output-dir", os.path.join(tmp, "batch")])
+        rc = smoke.main(["--books-dir", "books", "--device", "cpu"])
+        compare_ocr.main(["books/1/IMG_0002.jpg", "--device", "cpu", "--no-preprocess"])
+        profile_engine.main(["--photos", "1", "--repeat", "1", "--chunk", "1", "--device", "cpu"])
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+    print(json.dumps({"title": meta["title"], "steps": [s["step"] for s in meta["_trace"]["steps"]],
+                      "posts": len(session.posts), "no_session": no_session, "thumb": list(thumb.shape),
+                      "sizes": sizes, "batch_ok": summary["succeeded"], "smoke_rc": rc,
+                      "printed": printed.getvalue(), "loaded": loaded}))
+    """
+)
+
+
 def _run_blocked(script, *args):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BB_OCR_BATCHING")}
     env["PYTHONPATH"] = ROOT
@@ -252,3 +322,18 @@ def test_evaluation_runs_without_jax_pillow_cv2_jsonschema_requests(tmp_path):
     assert "tpu_mean_word_recall" in out["printed"] and "replayed" in out["printed"]
     assert "eval_real" in out["printed"] and '"per_field"' in out["printed"]
     assert out["detectors"] == ["CRAFTLite", "CRAFTPublished"]
+
+
+def test_llm_route_and_host_clis_run_without_http_pillow_or_tesseract(tmp_path):
+    """The default backend (Ollama, with its warm-up) through a session
+    passed in, with a trace; the route without a session raises naming
+    ``requests``; the encoders; and the host CLIs, on one small canvas."""
+    out = _run_blocked(LLM_SCRIPT, str(tmp_path))
+    assert out["loaded"] == []
+    assert out["title"] == "T" and out["posts"] == 2 and out["steps"][-1] == "vlm_raw"
+    assert "requests" in out["no_session"]
+    assert out["thumb"] == [300, 225, 3] and min(out["sizes"]) > 0
+    assert out["batch_ok"] == 2 and out["smoke_rc"] == 0
+    printed = out["printed"]
+    assert "book 1:" in printed and "SMOKE PASS" in printed and "IMG_0002.jpg" in printed
+    assert '"op": "maps_download"' in printed

@@ -204,10 +204,16 @@ def test_extractor_makes_valid_json(engines, tmp_path):
     ids=["llm"],
 )
 def test_extractor_refuses_unported_knobs(kwargs):
+    """Every LLM backend but the on-chip PageReader is ported: the extractor
+    constructs with the others, and the PageReader (``"tpu"``) raises
+    naming its ROADMAP.md item when the route reaches the model."""
     base = dict(llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False, fast_single=False)
     base.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        BookMetadataExtractor(**base)
+    assert BookMetadataExtractor(**base, warm_model=False).llm_backend == kwargs["llm_backend"]
+    pagereader = BookMetadataExtractor(**{**base, "llm_backend": "tpu"}, session=object(), device="cpu")
+    image = np.zeros((16, 16, 3), np.uint8)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+        pagereader.extract_metadata_from_images([image], ocr_image_indices=[])
 
 
 class _ShapeEngine:

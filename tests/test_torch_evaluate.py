@@ -199,9 +199,15 @@ def test_evaluate_books_matches_jax(monkeypatch):
     assert got["per_field"] == ref["per_field"] and got["mean_cer"] == ref["mean_cer"]
 
 
-def test_evaluate_books_refuses_other_ocr_engines():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        evaluate.evaluate_books(os.path.join(ROOT, "books"), ocr_engine="tesseract", device="cpu")
+def test_evaluate_books_refuses_other_ocr_engines(monkeypatch, capsys):
+    """``ocr_engine="tesseract"`` reaches the extractor's escape hatch, as in
+    JAX; without ``pytesseract`` each OCR'd photo prints the hatch's error
+    and adds no text, and no CRAFT + CRNN engine is built."""
+    monkeypatch.setitem(sys.modules, "pytesseract", None)  # import raises ImportError
+    got = evaluate.evaluate_books(os.path.join(ROOT, "books"), ocr_engine="tesseract", limit=1, device="cpu")
+    out = capsys.readouterr().out
+    assert out.count("OCR failed: tesseract escape hatch unavailable (pytesseract not installed)") == 2
+    assert got["books"] == 1 and got["details"][0]["error"] is None
 
 
 @pytest.mark.parametrize("use_native", [True, False], ids=["native", "numpy"])

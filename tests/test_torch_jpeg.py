@@ -9,7 +9,7 @@
   markers, optimised Huffman tables and 16-bit quantisation tables.
   ``scripts/torch_port_reference.py --jpeg-digests`` times both decoders
   over the 99 files.
-- ``ops.pil_bilinear_resize_u8`` (numpy) against Pillow's ``BILINEAR``
+- ``ops.pil_resample_u8`` (numpy) against Pillow's ``BILINEAR``
   resample at the extractor's 1600 and 2400 px limits and on seeded
   random images.
 """
@@ -25,7 +25,7 @@ from PIL import Image
 
 from bbocr_tpu_torch.io import load_rgb
 from bbocr_tpu_torch.native import jpeg
-from bbocr_tpu_torch.ops import pil_bilinear_resize_u8
+from bbocr_tpu_torch.ops import pil_resample_u8
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 with open(os.path.join(ROOT, "tests", "data", "jpeg_pillow_sha256.json")) as _f:
@@ -148,7 +148,7 @@ RESIZES = [
 def test_pil_bilinear_resize_matches_pillow(src, dst):
     img = np.random.default_rng(src[0] + dst[1]).integers(0, 256, src).astype(np.uint8)
     ref = np.asarray(Image.fromarray(img).resize((dst[1], dst[0]), Image.BILINEAR))
-    np.testing.assert_array_equal(pil_bilinear_resize_u8(img, dst[1], dst[0]), ref)
+    np.testing.assert_array_equal(pil_resample_u8(img, dst[1], dst[0], "bilinear"), ref)
 
 
 def test_pil_bilinear_resize_on_a_preprocessed_photo():
@@ -156,4 +156,4 @@ def test_pil_bilinear_resize_on_a_preprocessed_photo():
     with Image.open(os.path.join(ROOT, "data", "real", "photos", "3", "IMG_9687.jpg")) as img:
         gray = np.asarray(img.convert("L").resize((3600, 2700), Image.BICUBIC))
     ref = np.asarray(Image.fromarray(gray).resize((1600, 1200), Image.BILINEAR))
-    np.testing.assert_array_equal(pil_bilinear_resize_u8(gray, 1600, 1200), ref)
+    np.testing.assert_array_equal(pil_resample_u8(gray, 1600, 1200, "bilinear"), ref)
