@@ -139,7 +139,32 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    JSON, ``batch --llm-backend heuristic`` over three books with 1 and 2
    workers in float32 (all succeed, fields equal), ``smoke --books-dir books`` prints
    ``SMOKE PASS``, ``profile_engine --photos 4 --repeat 2`` prints its
-   stage times.
+   stage times;
+12. the scanner service (``bbocr_tpu_torch/server/app.py``) on the card,
+   served on 127.0.0.1 in a thread with its own event loop and driven with
+   the standard library's HTTP client only, every check failing the run:
+   its engine warm-up at startup (``BB_OCR_ENGINE_WARMUP=1``, the shared
+   engine given a float32 configuration) must run to its end; the photos of
+   ``books/1`` to ``books/3`` posted to ``/api/process_images`` with
+   ``run_ocr=true`` for the ``heuristic`` and ``ollama`` backends (the
+   canned session of phase 11b), each job followed on ``/api/job_stream``
+   and ``/api/trace_stream`` until it ends, then read on ``/api/job_result``,
+   ``/api/trace_poll`` and ``/api/log_poll``, with every kernel launch count
+   set to 0 just before and read just after (2 per job): each job's
+   metadata, trace steps and LLM request equal to the JAX service's float32
+   CPU run (``tests/data/server_route_jax_f32.json``), no job in ``error``,
+   no ``OCR failed:`` in any log; seconds per job, the time from posting to
+   the first trace frame and the log's lines printed; then ``/api/accept``
+   on the ollama job's metadata, ``/api/transfer_get``,
+   ``/api/pricing_lookup`` through canned Google Books and AbeBooks clients,
+   ``/api/pricing/select_best``, ``/api/pricing/finalize`` both ways with
+   the files written, the ``/providers``, ``/lookup`` and
+   ``/pricing_embed`` aliases, and ``cli.pricing --from-json <accepted>
+   --select``, all equal to the JAX outputs in
+   ``tests/data/pricing_jax.json`` (times, ids and paths masked), as is the
+   stdlib AbeBooks parser on every recorded page (there is no bs4 here).
+   While a job runs the service sends every print of the process into the
+   job's log, so the phase prints after the service has shut down.
 
 Phases 4 to 7 run the engine of the first slices (device warps from the
 canvas, greedy decode), as their references were recorded; phases 8 and 9
@@ -228,6 +253,11 @@ WITNESS = os.path.join(ROOT, "tests", "data", "threshold_witness_jax_f32.json")
 # (scripts/torch_port_reference.py --encode / --llm-route)
 ENCODE_REFERENCE = os.path.join(ROOT, "tests", "data", "encode_jax_sha256.json")
 LLM_ROUTE = os.path.join(ROOT, "tests", "data", "llm_route_jax_f32.json")
+# The JAX scanner service's jobs on books/1 to books/3 (heuristic, ollama through
+# the canned session), float32, and the JAX pricing outputs on canned clients
+# and pages (scripts/torch_port_reference.py --server-route / --pricing)
+SERVER_ROUTE = os.path.join(ROOT, "tests", "data", "server_route_jax_f32.json")
+PRICING_REFERENCE = os.path.join(ROOT, "tests", "data", "pricing_jax.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SOURCE = "bbocr_tpu_torch/csrc/preprocess.cu"
@@ -1897,6 +1927,166 @@ def check_host_clis(card) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def job_differences(got: dict, want: dict) -> list:
+    """Where a service job's record (``job_record`` of
+    ``scripts/torch_port_reference.py``) differs from the reference's: its
+    status, metadata and trace steps, and each LLM request's URL, headers,
+    timeout, body, prompt and cover JPEG (the OCR'd photos' JPEGs aside:
+    the card's chain and the CPU's differ on a few pixels)."""
+    bad = [k for k in ("status", "error", "meta", "steps") if got.get(k) != want.get(k)]
+    posts, want_posts = got.get("posts", []), want.get("posts", [])
+    if len(posts) != len(want_posts):
+        return bad + ["posts"]
+    for i, (g, w) in enumerate(zip(posts, want_posts)):
+        bad += [f"post {i} {k}" for k in ("url", "headers", "timeout", "body", "prompt") if g[k] != w[k]]
+        if g["image_sha256"][:1] != w["image_sha256"][:1]:
+            bad.append(f"post {i} cover JPEG")
+    return bad
+
+
+@contextlib.contextmanager
+def watch_warmup():
+    """Within the block every ``OCREngine.warmup`` call is listed (its
+    return value once it ends) and an exception in it recorded, so that the
+    run fails at the next phase although the service's warm-up thread
+    swallows it."""
+    calls = []
+    warmup = OCREngine.__dict__["warmup"]
+    recorded = _recorded("OCREngine.warmup", warmup)
+
+    def listed(self, *args, **kw):
+        calls.append("started")
+        calls.append(recorded(self, *args, **kw))
+        return calls[-1]
+
+    OCREngine.warmup = listed
+    try:
+        yield calls
+    finally:
+        OCREngine.warmup = warmup
+
+
+def check_service(dev, card) -> dict:
+    """12: the port's scanner service on the card, served on 127.0.0.1 and
+    driven with the standard library's HTTP client only: the engine's
+    warm-up at startup (``BB_OCR_ENGINE_WARMUP=1``), jobs on ``books/1`` to
+    ``books/3`` for the heuristic and ollama backends (canned session),
+    float32, each job's metadata, steps and LLM request equal to the JAX
+    service's (``tests/data/server_route_jax_f32.json``) and every kernel
+    launched twice per job; then the review and pricing requests and the
+    pricing CLI through canned clients, equal to ``pricing_jax.json``, and
+    the stdlib AbeBooks parser on every recorded page. While a job runs the
+    service sends every print of the process into the job's log, so nothing
+    is printed until the service has shut down."""
+    import io
+    import shutil
+    import tempfile
+
+    from bbocr_tpu_torch.cli import pricing as pricing_cli
+    from bbocr_tpu_torch.pricing.providers import abebooks_html, google_books
+    from bbocr_tpu_torch.server.app import ScannerService
+    from scripts.torch_port_reference import (
+        LLM_MODELS, CannedHttp, CannedSession, ServiceThread, http_json, pricing_flow, server_jobs, wait_jobs_idle)
+
+    if os.environ.get("BB_OCR_BATCHING") is not None:
+        fail("BB_OCR_BATCHING is set: phase 12 serves the default wrapping")
+    with open(SERVER_ROUTE) as f:
+        ref = json.load(f)
+    with open(PRICING_REFERENCE) as f:
+        pref = json.load(f)
+    parse_bad = [(c["page"], c["query"]) for c in pref["parses"]
+                 if abebooks_html.parse_results_html(pref["pages"][c["page"]], **c["query"]) != c["offers"]]
+    session = CannedSession(ref["replies"], LLM_MODELS["gemini"])
+    http = CannedHttp(pref["google_payload"], {kn: pref["pages"][name] for kn, name in pref["lookup_pages"].items()})
+    clients = google_books._async_client, abebooks_html._async_client
+    google_books._async_client = abebooks_html._async_client = http
+    warm_env = os.environ.get("BB_OCR_ENGINE_WARMUP")
+    os.environ["BB_OCR_ENGINE_WARMUP"] = "1"
+    out, err = sys.stdout, sys.stderr
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    try:
+        with float32_engines(), watch_warmup() as warm_calls:
+            t0 = time.perf_counter()
+            service = ScannerService(data_dir=tmp, books_dir=BOOKS_DIR, device=dev, session=session)
+            with ServiceThread(service) as srv:
+                while len(warm_calls) < 2 and not SWALLOWED and time.perf_counter() - t0 < 600:
+                    time.sleep(0.05)
+                warm_s = time.perf_counter() - t0
+                _, health = http_json(srv.base, "GET", "/api/health")
+                kernels.reset_launches()
+                records, jobs = server_jobs(srv.base, session, ref["books"], ref["backends"])
+                torch.cuda.synchronize()
+                launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+                idle = wait_jobs_idle(service)
+                while (sys.stdout is not out or sys.stderr is not err) and time.perf_counter() - t0 < 900:
+                    time.sleep(0.01)  # the last job's runner puts the streams back after its status
+                sys.stdout, sys.stderr = out, err
+                accepted = records["ollama"]["1"].get("meta", {})
+                flow = pricing_flow(srv.base, accepted, tmp)
+                printed = io.StringIO()
+                with contextlib.redirect_stdout(printed):
+                    pricing_cli.main(["--from-json", os.path.join(service.accepted_dir, "book_1_ollama.json"),
+                                      "--select"])
+                _, metrics = http_json(srv.base, "GET", "/api/metrics")
+    finally:
+        sys.stdout, sys.stderr = out, err
+        google_books._async_client, abebooks_html._async_client = clients
+        if warm_env is None:
+            os.environ.pop("BB_OCR_ENGINE_WARMUP", None)
+        else:
+            os.environ["BB_OCR_ENGINE_WARMUP"] = warm_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_jobs = len(ref["books"]) * len(ref["backends"])
+    runs = [(b, k, jobs[b][k], records[b][k]) for b in ref["backends"] for k in ref["books"]]
+    seconds = [job.get("seconds", float("nan")) for *_, job, _ in runs]
+    print(f"service: warm-up {warm_calls[1:]} calls in {warm_s:.3f} s after startup; health {json.dumps(health)}; "
+          f"{n_jobs} jobs, seconds per job first {seconds[0]:.3f}, then median {statistics.median(seconds[1:]):.3f} "
+          f"(max {max(seconds[1:]):.3f}); launches {json.dumps(launches)}; {card}", flush=True)
+    failed = []
+    for backend, book, job, record in runs:
+        bad = job_differences(record, ref["runs"][backend][book])
+        ocr_failed = [line for line in job.get("logs", []) if "OCR failed:" in line]
+        first = job.get("first_trace_s")
+        print(f"  {backend} book {book}: {job.get('statuses')}, {job.get('seconds', float('nan')):.3f} s, first "
+              f"trace frame {'none' if first is None else f'{first:.3f} s'} after posting, {job.get('trace_frames')} "
+              f"trace frames, {len(job.get('logs', []))} log lines; "
+              f"{'equal to JAX' if not bad else 'DIFFERS in ' + ', '.join(bad)}", flush=True)
+        for line in ocr_failed:
+            print(f"    log: {line}", flush=True)
+        g, w = record.get("posts", []), ref["runs"][backend][book]["posts"]
+        if g and len(g) == len(w) and g[-1]["image_sha256"][1:] != w[-1]["image_sha256"][1:]:
+            print("    the OCR'd photos' JPEGs differ from JAX's (preprocessed on the card; not required)", flush=True)
+        if bad or ocr_failed or record.get("status") != "done" or not job.get("trace_frames"):
+            failed.append((backend, book))
+            print(f"    got  {json.dumps(record)[:3000]}\n    JAX  {json.dumps(ref['runs'][backend][book])[:3000]}",
+                  flush=True)
+    flow_bad = [k for k in pref["service"] if flow.get(k) != pref["service"][k]]
+    cli = json.loads(printed.getvalue())
+    requests_equal = sorted(map(json.dumps, http.requests)) == sorted(map(json.dumps, pref["requests"]))
+    lookup = flow["pricing_lookup"]["body"]
+    print(f"pricing: {len(lookup['offers'])} offers, errors {json.dumps(lookup['errors'])}, best "
+          f"{flow['select_best']['body']['reason']}; service responses {'equal' if not flow_bad else 'DIFFER in ' + str(flow_bad)}"
+          f", CLI {'equal' if cli == pref['cli'] else 'DIFFERS'}, requests {'equal' if requests_equal else 'DIFFER'}; "
+          f"the stdlib AbeBooks parser on {len(pref['parses'])} recorded pages and queries: "
+          f"{'equal' if not parse_bad else 'DIFFERS on ' + str(parse_bad)}; engine timings "
+          f"{json.dumps({k: round(v['total_s'], 3) for k, v in metrics['engine_timings'].items()})} s; {card}", flush=True)
+    for k in flow_bad:
+        print(f"    {k}: got {json.dumps(flow.get(k))[:2000]}\n    JAX {json.dumps(pref['service'][k])[:2000]}", flush=True)
+    if len(warm_calls) < 2 or warm_calls[1] != 1 + len(EngineConfig().canvases):
+        fail(f"the service's engine warm-up did not run to its end: {warm_calls}, {SWALLOWED[:3]}")
+    if not (health.get("pipeline_imported") and health.get("pricing_available")):
+        fail(f"/api/health: {health}")
+    if not idle or failed:
+        fail(f"service jobs differ from the JAX service's or failed: {failed} (all ended: {idle})")
+    for name, count in launches.items():
+        if count != 2 * n_jobs:
+            fail(f"kernel {name} launched {count} times by {n_jobs} service jobs (2 per job expected)")
+    if flow_bad or cli != pref["cli"] or not requests_equal or parse_bad:
+        fail(f"pricing differs from the JAX package's: responses {flow_bad}, CLI {cli != pref['cli']}, requests "
+             f"{not requests_equal}, parses {parse_bad}")
+    return launches
+
+
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
@@ -2015,13 +2205,16 @@ def main() -> int:
         report[name]["launches_llm_route"] = count
     phase("phase 11c: the host CLIs")
     check_host_clis(card)
+    phase("phase 12: the scanner service on the card: jobs, review, pricing, approval")
+    for name, count in check_service(dev, card).items():
+        report[name]["launches_service"] = count
     phase("end: the kernels' line and the result")
 
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed",
              "launches_default_route", "launches_shared_route", "launches_autocrop_route", "launches_evaluate_books",
-             "launches_llm_route"]
+             "launches_llm_route", "launches_service"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

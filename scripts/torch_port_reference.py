@@ -20,6 +20,8 @@ references for the PyTorch port.
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --threshold-witness [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --encode [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --llm-route [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --server-route [--canvas 416x320] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --pricing [--out PATH]
 
 Default mode: the photo goes through ``_chain_gray_pallas`` and then
 ``OCREngine.readtext`` in the given compute type with the configuration the
@@ -155,6 +157,33 @@ each JPEG sent), the metadata (``engine_timings`` aside, no trace) and
 the trace's steps (previews aside), to ``tests/data/llm_route_jax_f32.json``
 (``chip_smoke.py`` phase 11b).
 
+``--server-route``: the JAX scanner service (``bbocr_tpu/server/app.py``)
+served on 127.0.0.1 and driven over HTTP with the standard library: the
+photos of ``books/1`` to ``books/3`` posted to ``/api/process_images``
+with ``run_ocr=true``, once with ``llm_backend=heuristic`` and once with
+``ollama`` (the extractors' LLM session the canned one of ``--llm-route``),
+each job followed on ``/api/job_stream`` and ``/api/trace_stream`` until it
+ends, then read on ``/api/job_result``. Its shared engine is float32 in the
+JAX default configuration. Per backend and book: the job's status, its
+metadata (trace dropped, ``engine_timings`` aside), the trace's steps and
+the LLM requests, to ``tests/data/server_route_jax_f32.json``
+(``chip_smoke.py`` phase 12). With ``--canvas 416x320``: ``books/1`` only,
+on that one canvas, to ``server_route_jax_f32_416x320.json``
+(``tests/test_torch_server.py``).
+
+``--pricing`` (after ``--server-route``): the JAX pricing outputs on canned
+HTTP clients (``CannedHttp``: the Google Books payload of
+``tests/test_google_books.py``; AbeBooks pages by search keywords): the
+AbeBooks ``parse_results_html`` of the recorded page of
+``tests/test_pricing.py``, of seeded synthetic pages
+(``synthetic_abebooks_page``) and of the page the lookup is served, each
+with three queries; the JAX service's review and pricing requests
+(``pricing_flow``: accept the ollama job's metadata of ``books/1``, take it
+back, look up, select, finalize both ways, the aliases), masked; and
+``bbocr_tpu.cli.pricing --from-json <accepted> --select``; to
+``tests/data/pricing_jax.json`` (``chip_smoke.py`` phase 12,
+``tests/test_torch_pricing.py``).
+
 ``--jpeg-digests``: the SHA-256 of Pillow's RGB decoding of every JPEG in
 ``books/`` and ``data/real/photos/``, with its shape, to
 ``tests/data/jpeg_pillow_sha256.json``; then each file is decoded again by
@@ -169,6 +198,7 @@ import glob
 import hashlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -805,6 +835,519 @@ def llm_route() -> dict:
             "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# The scanner service and pricing: a stdlib HTTP client, the service runner,
+# canned pricing clients, synthetic AbeBooks pages (importable without JAX:
+# ``chip_smoke.py`` phase 12 and the tests drive the port's service with them)
+# ---------------------------------------------------------------------------
+
+SERVER_BOOKS = ["1", "2", "3"]
+SERVER_BACKENDS = ["heuristic", "ollama"]
+JOB_TIMEOUT_S = 600.0
+
+
+def http_call(base: str, method: str, path: str, body: bytes = b"", headers=None, timeout: float = 60.0):
+    """One request with ``http.client`` -> (status, lower-cased headers, body bytes)."""
+    import http.client
+    import urllib.parse
+
+    url = urllib.parse.urlsplit(base)
+    conn = http.client.HTTPConnection(url.hostname, url.port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, {k.lower(): v for k, v in resp.getheaders()}, resp.read()
+    finally:
+        conn.close()
+
+
+def http_json(base: str, method: str, path: str, payload=None, timeout: float = 60.0):
+    """A JSON request (``payload`` None: no body) -> (status, decoded JSON or text)."""
+    body = b"" if payload is None else json.dumps(payload).encode()
+    headers = {"Content-Type": "application/json"} if payload is not None else {}
+    status, resp_headers, data = http_call(base, method, path, body, headers, timeout)
+    if resp_headers.get("content-type", "").startswith("application/json"):
+        return status, json.loads(data)
+    return status, data.decode("utf-8", "replace")
+
+
+def multipart(fields: dict, files: list):
+    """``fields`` {name: value} and ``files`` [(field, filename, content type,
+    bytes)] -> (body, Content-Type header) of a multipart/form-data request."""
+    boundary = "bbocrboundary" + hashlib.sha256(repr(sorted(fields.items())).encode()).hexdigest()[:16]
+    parts = []
+    for name, value in fields.items():
+        parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="{name}"\r\n\r\n{value}\r\n'.encode())
+    for field, filename, ctype, data in files:
+        head = (f'--{boundary}\r\nContent-Disposition: form-data; name="{field}"; filename="{filename}"\r\n'
+                f"Content-Type: {ctype}\r\n\r\n")
+        parts.append(head.encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), f"multipart/form-data; boundary={boundary}"
+
+
+def sse_frames(base: str, path: str, stop, timeout: float = JOB_TIMEOUT_S, t0=None) -> list:
+    """Follows a server-sent-event stream: [(seconds since ``t0``, default
+    the call, frame)] for each ``data:`` frame, until ``stop(frame)`` is
+    true or the server closes the stream."""
+    import http.client
+    import urllib.parse
+
+    url = urllib.parse.urlsplit(base)
+    t0 = time.perf_counter() if t0 is None else t0
+    conn = http.client.HTTPConnection(url.hostname, url.port, timeout=timeout)
+    frames = []
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        data = []
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode("utf-8").rstrip("\r\n")
+            if line.startswith("data: "):
+                data.append(line[len("data: "):])
+            elif not line and data:
+                frame = json.loads("\n".join(data))
+                data = []
+                frames.append((time.perf_counter() - t0, frame))
+                if stop(frame):
+                    break
+    finally:
+        conn.close()
+    return frames
+
+
+class ServiceThread:
+    """Serves a scanner service's ``app`` on 127.0.0.1 at a free port, in a
+    thread with its own event loop, as ``tests/test_server.py`` does;
+    ``base`` is its URL. Leaving the block cancels the live connections and
+    stops the loop."""
+
+    def __init__(self, service):
+        self.service, self.base = service, None
+
+    def __enter__(self):
+        import asyncio
+        import socket
+        import threading
+
+        sock = socket.socket()
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        self.loop = asyncio.new_event_loop()
+        self.base = f"http://127.0.0.1:{port}"
+
+        def run():
+            asyncio.set_event_loop(self.loop)
+            try:
+                self.loop.run_until_complete(self.service.app.serve("127.0.0.1", port))
+            except RuntimeError:
+                pass  # the loop was stopped
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        for _ in range(200):
+            try:
+                http_call(self.base, "GET", "/api/health", timeout=2)
+                return self
+            except OSError:
+                time.sleep(0.05)
+        raise RuntimeError("the service did not start")
+
+    def __exit__(self, *exc):
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.service.app.shutdown(), self.loop).result(timeout=10)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=10)
+        if not self.thread.is_alive():
+            self.loop.close()
+
+
+def wait_jobs_idle(service, timeout: float = JOB_TIMEOUT_S) -> bool:
+    """Waits until no job of ``service`` is queued or running; True if so."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        with service.jobs._lock:
+            if not any(j["status"] in ("queued", "running") for j in service.jobs.jobs.values()):
+                return True
+        time.sleep(0.05)
+    return False
+
+
+def run_job(base: str, photos: list, form: dict) -> dict:
+    """Posts ``photos`` (paths) to ``/api/process_images`` with ``form``,
+    follows ``/api/job_stream`` and ``/api/trace_stream`` until the job
+    ends, then reads ``/api/job_result``, ``/api/trace_poll`` and every
+    ``/api/log_poll`` page. Prints nothing: while a job runs the service
+    sends every print of the process into its log."""
+    import threading
+
+    files = []
+    for path in photos:
+        with open(path, "rb") as f:
+            files.append(("images", os.path.basename(path), "image/jpeg", f.read()))
+    body, ctype = multipart(form, files)
+    t0 = time.perf_counter()
+    status, _, data = http_call(base, "POST", "/api/process_images", body, {"Content-Type": ctype})
+    posted = json.loads(data)
+    if status != 200:
+        return {"post_status": status, "post": posted}
+    job_id = posted["id"]
+    streams = {}
+
+    def follow(kind, stop):
+        streams[kind] = sse_frames(base, f"/api/{kind}?id={job_id}", stop, t0=t0)
+
+    threads = [threading.Thread(target=follow, args=("trace_stream", lambda f: f.get("type") == "end")),
+               threading.Thread(target=follow, args=("job_stream", lambda f: f.get("status") in ("done", "error")))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=JOB_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    _, result = http_json(base, "GET", f"/api/job_result?id={job_id}")
+    _, traces = http_json(base, "GET", f"/api/trace_poll?id={job_id}&after=0")
+    logs, after = [], 0
+    while True:
+        _, page = http_json(base, "GET", f"/api/log_poll?id={job_id}&after={after}")
+        if not page["items"]:
+            break
+        logs += [item["line"] for item in page["items"]]
+        after = page["items"][-1]["seq"]
+    trace_frames = [(s, f) for s, f in streams.get("trace_stream", []) if "trace" in f]
+    return {
+        "id": job_id, "post_status": status, "post": posted, "seconds": seconds, "result": result,
+        "statuses": [f.get("status") for _, f in streams.get("job_stream", []) if "status" in f],
+        "trace_frames": len(trace_frames), "trace_polled": len(traces["items"]),
+        "first_trace_s": trace_frames[0][0] if trace_frames else None, "logs": logs,
+    }
+
+
+def job_record(job: dict, posts) -> dict:
+    """What a job's result must match: its metadata (the trace dropped;
+    ``engine_timings`` and the port's ``ocr_boxes``, which the JAX
+    extractor's info lacks, aside), the trace's steps (previews aside) and
+    the LLM requests the job made."""
+    if job["result"].get("status") != "done":
+        return {"status": job["result"].get("status"), "error": job["result"].get("error")}
+    meta = dict(job["result"]["metadata"])
+    trace = meta.pop("_trace", {"steps": []})
+    info = dict(meta.pop("_processing_info"))
+    info.pop("engine_timings", None)
+    boxes = info.pop("ocr_boxes", None)
+    steps = [{k: v for k, v in step.items() if k != "images"} for step in trace["steps"]]
+    record = {"status": job["result"]["status"], "meta": {**meta, "_processing_info": info}, "steps": steps,
+              "posts": [summarize_post(p) for p in posts]}
+    return record if boxes is None else {**record, "ocr_boxes": boxes}
+
+
+def server_jobs(base: str, session, books=SERVER_BOOKS, backends=SERVER_BACKENDS) -> tuple:
+    """Each book of ``books/`` posted once per backend with ``run_ocr=true``:
+    ({backend: {book: record}}, {backend: {book: job}}). ``session`` is the
+    canned session the service's extractors use."""
+    records, jobs = {}, {}
+    for backend in backends:
+        records[backend], jobs[backend] = {}, {}
+        for book in books:
+            start = len(session.posts)
+            job = run_job(base, book_images(book), {"llm_backend": backend, "model": LLM_MODELS["ollama"],
+                                                    "run_ocr": "true"})
+            jobs[backend][book] = job
+            records[backend][book] = job_record(job, session.posts[start:]) if "result" in job else job
+    return records, jobs
+
+
+def server_route(canvas) -> dict:
+    """The JAX service's jobs on ``books/`` (``books/1`` only with a canvas),
+    its shared engine float32 in the JAX default configuration, the LLM
+    through the canned session."""
+    import tempfile
+
+    from bbocr_tpu.extract import extractor as jax_extractor
+    from bbocr_tpu.server.app import ScannerService
+
+    books = SERVER_BOOKS if canvas is None else SERVER_BOOKS[:1]
+    session = CannedSession(LLM_REPLIES, LLM_MODELS["gemini"])
+    jax_extractor._ENGINE_CACHE.clear()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, _jax_config(_default_config("float32", canvas)):
+            service = ScannerService(data_dir=tmp, books_dir=os.path.join(ROOT, "books"))
+            build = service._build_extractor
+
+            def with_session(**knobs):
+                ext = build(**knobs)
+                ext.session = session
+                return ext
+
+            service._build_extractor = with_session
+            with ServiceThread(service) as srv:
+                records, jobs = server_jobs(srv.base, session, books)
+    finally:
+        engine = jax_extractor._ENGINE_CACHE.pop("engine", None)
+        if engine is not None and hasattr(engine, "close"):
+            engine.close()
+    for backend, by_book in jobs.items():
+        for book, job in by_book.items():
+            print(f"{backend} book {book}: {job['seconds']:.1f} s, {job['statuses']}, "
+                  f"{json.dumps({k: v for k, v in records[backend][book]['meta'].items() if not k.startswith('_')})}")
+    return {"dtype": "float32", "canvas": canvas, "books": books, "backends": SERVER_BACKENDS,
+            "model": LLM_MODELS["ollama"], "replies": LLM_REPLIES, "runs": records}
+
+
+class _CannedResponse:
+    def __init__(self, url: str, status: int, payload=None, text: str = ""):
+        self.url, self.status_code, self._payload, self.text = url, status, payload, text
+
+    def raise_for_status(self):
+        if self.status_code >= 400:
+            raise RuntimeError(f"canned HTTP {self.status_code} for {self.url}")
+
+    def json(self):
+        return self._payload
+
+
+class _CannedClient:
+    def __init__(self, http, kwargs):
+        self.http, self.kwargs = http, kwargs
+
+    async def __aenter__(self):
+        return self
+
+    async def __aexit__(self, *exc):
+        return False
+
+    async def get(self, url, params=None):
+        params = dict(params or {})
+        self.http.requests.append({"url": url, "params": params, "client": self.kwargs})
+        if "googleapis.com" in url:
+            return _CannedResponse(url, 200, payload=self.http.payload)
+        page = self.http.pages.get(params.get("kn"))
+        return _CannedResponse(url, 404 if page is None else 200, text=page or "")
+
+
+class CannedHttp:
+    """Stands in for ``httpx.AsyncClient`` in the pricing references (call
+    it as the class is called): the Google Books API answers ``payload``,
+    an AbeBooks search the page of ``pages`` for its keywords (``kn``) and
+    404 for others; every GET is recorded in ``requests``."""
+
+    def __init__(self, payload: dict, pages: dict):
+        self.payload, self.pages, self.requests = payload, pages, []
+
+    def __call__(self, **kwargs):
+        return _CannedClient(self, kwargs)
+
+
+_CARD_OPEN = {
+    "srp": ('<li class="srp-list-item">', "</li>"),
+    "result": ('<div class="cf"><div class="result">', "</div></div>"),
+    "search": ('<div class="cf search-result">', "</div>"),
+    "item": ('<div class="srp-item"><div class="result">', "</div></div>"),
+    "li": ("<li>", "</li>"),
+    "div": ("<div>", "</div>"),
+}
+
+
+def synthetic_abebooks_page(seed: int, title: str = "The Sea", author: str = "John Banville",
+                            year: str = "2005") -> str:
+    """A seeded AbeBooks-like result page that reaches every selector and
+    fallback of ``_parse_card``: card classes, or none (``li, div``); each
+    title, link, author, price, currency, basket and date form; unclosed
+    ``<li>`` and ``<p>``, nested cards, void and self-closed tags, comments,
+    scripts, entities and odd whitespace."""
+    import random
+
+    rng = random.Random(seed)
+    style = rng.choice(sorted(_CARD_OPEN))
+    ws = lambda: rng.choice(["", " ", "\n", "\n\t  ", "  \r\n", "&#10;", "&nbsp;"])  # noqa: E731
+    titles = [title, title.upper(), f"{title} (Vintage)", f"  {title}\n  Paperback  ", "Other Book",
+              f"{title} &amp; Sky", title.replace(" ", "   ")]
+    cards = []
+    for i in range(rng.randint(2, 12)):
+        t, parts = rng.choice(titles), []
+        href = rng.choice([f"/servlet/BookDetailsPL?bi={1000 + i}", f"/bd{i}", f"https://www.abebooks.com/bd/{i}",
+                           None])
+        kind = rng.choice(["h2.srp-title", "span.srp-title", "link", "h2", "none"])
+        if kind == "h2.srp-title":
+            parts.append(f'<h2 class="srp-title">{t}</h2>')
+        elif kind == "span.srp-title":
+            parts.append(f'<span class="x srp-title">{t}</span>')
+        elif kind == "h2":
+            parts.append(f"<h2>{t}{rng.choice(['', '<br>', '<!-- ad -->'])}</h2>")
+        if kind == "link" or (href and rng.random() < 0.5):
+            cls = "srp-item-detail-link" if kind == "link" or rng.random() < 0.5 else "detail"
+            parts.append(f'<a class="{cls}" href="{href or "/bd/x"}">{t if kind == "link" else "details"}</a>')
+        elif href and "/bd" in href:
+            parts.append(f'<a href="{href}">see{ws()}more</a>')
+        if rng.random() < 0.7:
+            cls = rng.choice(["author", "srp-author", "result-author", "text-muted"])
+            parts.append(f'<span class="{cls}">{rng.choice([author, "by " + author, author.upper(), "Anon"])}</span>')
+        price = rng.choice([
+            '<meta itemprop="price" content="{a}">', '<span itemprop="price">US$&nbsp;{a}</span>',
+            '<span itemprop="price" content="n/a">USD {a}</span>', '<p class="item-price">&pound;{a}',
+            '<div class="srp-item-price">{a} EUR</div>', '<span class="price">C$ {a}</span>',
+            '<b data-cy="listing-price">&euro;{c}</b>', '<b data-cy="item-price">AU$ {a}</b>',
+            "<p>Price: USD {a}</p>", '<span class="price">Price on request</span>', "",
+        ])
+        amount = rng.choice(["8.50", "12.00", "4.75", "1,234.56", "19", "0.99"])
+        parts.append(price.format(a=amount, c=amount.replace(".", ",")))
+        if "itemprop" in price and rng.random() < 0.6:
+            parts.append(rng.choice(['<meta itemprop="priceCurrency" content=" usd ">',
+                                     '<span itemprop="priceCurrency" content="GBP"></span>',
+                                     '<span itemprop="priceCurrency">EUR</span>']))
+        if rng.random() < 0.3:
+            cost = rng.choice(["4.75", "n/a", "", "12"])
+            parts.append(f'<a id="add-to-basket-link-{i}" data-csa-c-cost="{cost}" '
+                         f'data-csa-c-purchase-currency="{rng.choice(["US%24", "USD", "EUR"])}"></a>')
+        y = rng.choice([year, year, "1978", "1999"])
+        parts.append(rng.choice([
+            f'<meta itemprop="datePublished" content="{y}">', f'<time itemprop="datePublished">{y}-01-02</time>',
+            f'<span itemprop="datePublished" content=" {y} "></span>', f"<time>March {y}</time>",
+            '<time content=""></time>', f"<span>Published: {y}</span>", f"<p>Publication date:{ws()}{y}",
+            f"<span>First edition {y}</span>", "",
+        ]))
+        for _ in range(rng.randint(0, 2)):
+            parts.insert(rng.randrange(len(parts) + 1), rng.choice([
+                "<br>", "<br/>", '<img src="c.jpg" alt="cover">', "<hr>", '<input type="hidden" value="$3.00">',
+                "<!-- sponsored $1.00 -->", '<script>var p = "$2.00";</script>', "<wbr>", "</span>", "<p>",
+            ]))
+        open_tag, close_tag = _CARD_OPEN[style]
+        if style in ("srp", "li") and rng.random() < 0.3:
+            close_tag = ""  # unclosed: the next card nests inside this one
+        cards.append(open_tag + ws() + ws().join(parts) + ws() + close_tag)
+    if rng.random() < 0.3:
+        cards.append(cards[rng.randrange(len(cards))])  # a duplicate listing
+    outer = ("<ul>", "</ul>") if style in ("srp", "li") else ("<div id=results>", "</div>")
+    return ("<!DOCTYPE html><html><head><title>AbeBooks</title><style>.price{color:red}</style></head><body>"
+            + outer[0] + "\n".join(cards) + outer[1] + "<footer>&copy; AbeBooks 2024</footer></body></html>")
+
+
+PRICING_SEEDS = list(range(8))
+
+
+def pricing_queries(title: str, author: str, year: str) -> list:
+    """The (title, primary author, year) queries each page is parsed with."""
+    return [dict(title=title, primary_author=author, year=None), dict(title=title, primary_author=None, year=year),
+            dict(title=None, primary_author=None, year=None)]
+
+
+def masked(obj, root: str = ""):
+    """A service response with what differs between runs masked: values of
+    ``transfer_key``, ``uptime_s``, ``ts`` and ``mtime``; in every string,
+    ``root`` (the data directory) and millisecond timestamps."""
+    if isinstance(obj, dict):
+        return {k: "<masked>" if k in ("transfer_key", "uptime_s", "ts", "mtime") else masked(v, root)
+                for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [masked(v, root) for v in obj]
+    if isinstance(obj, str):
+        if root:
+            obj = obj.replace(root, "<data>")
+        return re.sub(r"\d{13}", "<ms>", obj)
+    return obj
+
+
+def pricing_flow(base: str, accepted: dict, root: str) -> dict:
+    """The review and pricing requests of a scanner service: accept the
+    metadata, take it back by its transfer key, look up offers (the four
+    default providers), select the best, finalize approved and rejected
+    (with the files written), the standalone aliases, the embed page and
+    the processed list; each response masked (``masked``)."""
+    import urllib.parse
+
+    out = {}
+
+    def call(name, method, path, payload=None):
+        status, body = http_json(base, method, path, payload)
+        out[name] = {"status": status, "body": masked(body, root)}
+        return body
+
+    saved = call("accept", "POST", "/api/accept", {"id": "Book 1 (ollama)", "metadata": accepted, "notes": "ok"})
+    call("transfer_get", "GET", f"/api/transfer_get?key={saved['transfer_key']}")
+    call("transfer_missing", "GET", "/api/transfer_get?key=bogus")
+    query = {k: accepted.get(k) for k in ("title", "authors", "isbn_13", "isbn_10", "publisher")}
+    query["publication_date"] = accepted.get("publication_date") or accepted.get("year")
+    found = call("pricing_lookup", "POST", "/api/pricing_lookup", query)
+    best = call("select_best", "POST", "/api/pricing/select_best", {"metadata": accepted, "offers": found["offers"]})
+    for decision in ("approved", "rejected"):
+        done = call(f"finalize_{decision}", "POST", "/api/pricing/finalize", {
+            "id": "Book 1", "decision": decision, "merged": best["merged"], "best_offer": best["best_offer"],
+            "comment": "priced" if decision == "approved" else "too cheap"})
+        with open(done["path"], encoding="utf-8") as f:
+            out[f"finalize_{decision}"]["file"] = json.load(f) if decision == "approved" else f.read()
+    call("finalize_bad", "POST", "/api/pricing/finalize", {"decision": "maybe"})
+    call("providers", "GET", "/api/pricing/providers")
+    call("providers_alias", "GET", "/providers")
+    call("lookup_alias", "POST", "/lookup", {"title": "Unlisted", "authors": "Nobody",
+                                             "providers": ["abebooks", "google_books", "nope"]})
+    call("embed", "GET", "/pricing_embed")
+    call("processed_list", "GET", "/api/pricing/processed/list")
+    call("processed_load", "GET", f"/processed/load?path={urllib.parse.quote(saved['path'])}")
+    call("processed_refused", "GET", "/processed/load?path=/etc/passwd")
+    return out
+
+
+def pricing_reference() -> dict:
+    """The JAX package's pricing outputs on canned clients and pages:
+    ``parse_results_html`` of the recorded page of ``tests/test_pricing.py``
+    and of seeded synthetic pages, then the JAX service's review and pricing
+    requests (``pricing_flow``) on the ollama job's metadata of
+    ``tests/data/server_route_jax_f32.json``, and the pricing CLI
+    (``--from-json`` of the accepted JSON, ``--select``)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import httpx
+
+    from bbocr_tpu.cli import pricing as jax_pricing_cli
+    from bbocr_tpu.pricing.providers.abebooks_html import parse_results_html
+    from bbocr_tpu.server.app import ScannerService
+    from tests.test_google_books import RECORDED
+    from tests.test_pricing import ABEBOOKS_HTML
+
+    with open(os.path.join(ROOT, "tests", "data", "server_route_jax_f32.json")) as f:
+        accepted = json.load(f)["runs"]["ollama"]["1"]["meta"]
+    title, author, year = accepted["title"], accepted["authors"][0], accepted["year"]
+    pages = {"recorded": ABEBOOKS_HTML}
+    pages.update({f"synthetic_{s}": synthetic_abebooks_page(s) for s in PRICING_SEEDS})
+    pages["lookup"] = synthetic_abebooks_page(100, title, author, year)
+    parses = []
+    for name, page in pages.items():
+        queries = (pricing_queries("The Sea", "John Banville", "2005") if name != "lookup"
+                   else pricing_queries(title, author, year))
+        for q in queries:
+            parses.append({"page": name, "query": q, "offers": parse_results_html(page, **q)})
+    lookup_pages = {" ".join((title, author, year)): "lookup"}
+    http = CannedHttp(RECORDED, {kn: pages[name] for kn, name in lookup_pages.items()})
+    original = httpx.AsyncClient
+    httpx.AsyncClient = http
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            service = ScannerService(data_dir=tmp, books_dir=os.path.join(ROOT, "books"))
+            with ServiceThread(service) as srv:
+                flow = pricing_flow(srv.base, accepted, tmp)
+            printed = io.StringIO()
+            argv = sys.argv
+            sys.argv = ["pricing", "--from-json", os.path.join(service.accepted_dir, "book_1_ollama.json"), "--select"]
+            try:
+                with contextlib.redirect_stdout(printed):
+                    jax_pricing_cli.main()
+            finally:
+                sys.argv = argv
+    finally:
+        httpx.AsyncClient = original
+    print(f"{len(parses)} parses; lookup offers {len(flow['pricing_lookup']['body']['offers'])}, errors "
+          f"{flow['pricing_lookup']['body']['errors']}; best {flow['select_best']['body']['reason']}")
+    return {"google_payload": RECORDED, "pages": pages, "lookup_pages": lookup_pages, "accepted": accepted,
+            "parses": parses, "service": flow, "cli": json.loads(printed.getvalue()),
+            "requests": sorted(http.requests, key=json.dumps)}
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -821,9 +1364,11 @@ def main() -> None:
     mode.add_argument("--threshold-witness", action="store_true")
     mode.add_argument("--encode", action="store_true")
     mode.add_argument("--llm-route", action="store_true")
+    mode.add_argument("--server-route", action="store_true")
+    mode.add_argument("--pricing", action="store_true")
     p.add_argument("--canvas", default=None,
                    help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options, "
-                        "--evaluate-real, --evaluate-books)")
+                        "--evaluate-real, --evaluate-books, --server-route)")
     p.add_argument("--image", default=None)
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--out", default=None)
@@ -862,6 +1407,12 @@ def main() -> None:
     elif args.llm_route:
         out = llm_route()
         out_path = args.out or os.path.join(data, "llm_route_jax_f32.json")
+    elif args.server_route:
+        out = server_route(canvas)
+        out_path = args.out or os.path.join(data, f"server_route_jax_f32{tail}.json")
+    elif args.pricing:
+        out = pricing_reference()
+        out_path = args.out or os.path.join(data, "pricing_jax.json")
     elif args.covers:
         out = covers_without_route()
         out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")

@@ -16,7 +16,13 @@ evaluation CLIs (``evaluate_real``, ``evaluate``, ``restructure``,
 fourth, with ``pytesseract`` blocked as well, runs the LLM route with a
 session passed in (and without one, where it must raise naming
 ``requests``), the encoders, and the host CLIs ``process_book``, ``batch``
-and ``smoke`` over ``books/``, ``compare_ocr`` and ``profile_engine``.
+and ``smoke`` over ``books/``, ``compare_ocr`` and ``profile_engine``. A
+fifth serves the scanner service on the CPU (``httpx``, ``bs4``,
+``gspread`` and ``google`` are blocked in all of them): its warm-up, jobs on
+``books/1`` (heuristic and ollama through a session passed in), the review
+and pricing requests and the pricing CLI through canned HTTP clients;
+without a session and without ``httpx`` it answers as the JAX service does
+without ``requests`` and ``httpx``.
 """
 
 import json
@@ -37,7 +43,8 @@ BLOCKER = textwrap.dedent(
     import json
     import sys
 
-    BLOCKED = {"jax", "jaxlib", "flax", "bbocr_tpu", "PIL", "cv2", "jsonschema", "requests", "pytesseract"}
+    BLOCKED = {"jax", "jaxlib", "flax", "bbocr_tpu", "PIL", "cv2", "jsonschema", "requests", "pytesseract", "httpx",
+               "bs4", "gspread", "google"}
 
     class Blocker(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -46,6 +53,8 @@ BLOCKER = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, Blocker())
+    for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:  # namespace packages a .pth file loaded
+        del sys.modules[name]
     try:
         import cv2  # noqa: F401
     except ImportError:
@@ -247,6 +256,62 @@ LLM_SCRIPT = BLOCKER + textwrap.dedent(
 )
 
 
+SERVICE_SCRIPT = BLOCKER + textwrap.dedent(
+    """
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    torch.set_num_threads(2)
+    from bbocr_tpu_torch.cli import pricing as pricing_cli
+    from bbocr_tpu_torch.pricing.providers import abebooks_html, google_books
+    from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
+    from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
+    from bbocr_tpu_torch.server.app import ScannerService
+    from scripts.torch_port_reference import (LLM_MODELS, LLM_REPLIES, CannedHttp, CannedSession, ServiceThread,
+                                              http_json, pricing_flow, server_jobs, wait_jobs_idle)
+
+    SMALL = EngineConfig(canvases=(CanvasSpec(288, 224),), compute_dtype=torch.float32)
+    from_checkpoint = OCREngine.from_checkpoint.__func__
+    OCREngine.from_checkpoint = classmethod(lambda cls, craft, crnn, *_, **kw: from_checkpoint(
+        cls, craft, crnn, SMALL, **kw))
+    warmups, warmup = [], OCREngine.warmup
+    OCREngine.warmup = lambda self, *a: warmups.append(warmup(self, *a)) or warmups[-1]
+    os.environ["BB_OCR_ENGINE_WARMUP"] = "1"
+    with open("tests/data/pricing_jax.json") as f:
+        pref = json.load(f)
+    clients = google_books._async_client, abebooks_html._async_client
+    google_books._async_client = abebooks_html._async_client = CannedHttp(
+        pref["google_payload"], {kn: pref["pages"][name] for kn, name in pref["lookup_pages"].items()})
+    tmp = sys.argv[1]
+    session = CannedSession(LLM_REPLIES, LLM_MODELS["gemini"])
+    service = ScannerService(data_dir=tmp, device="cpu", session=session)
+    with ServiceThread(service) as srv:
+        _, health = http_json(srv.base, "GET", "/api/health")
+        records, jobs = server_jobs(srv.base, session, ["1"])
+        idle = wait_jobs_idle(service)
+        flow = pricing_flow(srv.base, pref["accepted"], tmp)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            pricing_cli.main(["--from-json", os.path.join(service.accepted_dir, "book_1_ollama.json"), "--select"])
+    google_books._async_client, abebooks_html._async_client = clients
+    os.environ.pop("BB_OCR_ENGINE_WARMUP")
+    bare = ScannerService(data_dir=os.path.join(tmp, "bare"), device="cpu")
+    with ServiceThread(bare) as srv, contextlib.redirect_stderr(io.StringIO()):
+        bare_models = http_json(srv.base, "GET", "/api/models")[0]
+        _, bare_lookup = http_json(srv.base, "POST", "/api/pricing_lookup", {"title": "T", "authors": ["A"]})
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+    print(json.dumps({"loaded": loaded, "health": health, "warmups": warmups, "idle": idle,
+                      "statuses": {b: jobs[b]["1"]["statuses"] for b in jobs},
+                      "titles": {b: records[b]["1"]["meta"]["title"] for b in records},
+                      "flow_equal": flow == pref["service"], "cli_equal": json.loads(printed.getvalue()) == pref["cli"],
+                      "bare_models": bare_models, "bare_errors": bare_lookup["errors"]}))
+    """
+)
+
+
 def _run_blocked(script, *args):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BB_OCR_BATCHING")}
     env["PYTHONPATH"] = ROOT
@@ -337,3 +402,23 @@ def test_llm_route_and_host_clis_run_without_http_pillow_or_tesseract(tmp_path):
     printed = out["printed"]
     assert "book 1:" in printed and "SMOKE PASS" in printed and "IMG_0002.jpg" in printed
     assert '"op": "maps_download"' in printed
+
+
+def test_service_and_pricing_run_without_http_libraries_or_bs4(tmp_path):
+    """The scanner service with ``httpx``, ``bs4``, ``gspread``, ``google``
+    and ``requests`` blocked: the warm-up (one batch and one call on the
+    small canvas), both jobs on ``books/1`` done, the review and pricing
+    requests and the CLI equal to the JAX outputs recorded in
+    ``tests/data/pricing_jax.json``; without a session the model list
+    answers 500 (``requests`` missing, as the JAX service's import raises),
+    and without ``httpx`` the two network providers file it as their
+    errors."""
+    out = _run_blocked(SERVICE_SCRIPT, str(tmp_path))
+    assert out["loaded"] == [] and out["idle"] and out["warmups"] == [2]
+    assert out["health"]["pipeline_imported"] and out["health"]["pricing_available"]
+    assert out["statuses"] == {"heuristic": ["queued", "running", "done"], "ollama": ["queued", "running", "done"]}
+    assert out["titles"]["ollama"] == "Fenced Title" and out["titles"]["heuristic"]
+    assert out["flow_equal"] and out["cli_equal"]
+    assert out["bare_models"] == 500
+    assert set(out["bare_errors"]) == {"google_books", "abebooks"}
+    assert all("httpx" in e for e in out["bare_errors"].values())
