@@ -40,7 +40,7 @@ import numpy as np
 from bbocr_tpu_torch.cli.evaluate import REAL_FIELDS as FIELDS
 from bbocr_tpu_torch.cli.evaluate import score_real_fields
 from bbocr_tpu_torch.extract.heuristics import heuristic_extract, heuristic_extract_lines
-from bbocr_tpu_torch.io import load_rgb
+from bbocr_tpu_torch.io import load_gray
 from bbocr_tpu_torch.runtime.orient import read_with_rotations, rotation_score  # noqa: F401  (re-exported)
 
 REAL_DIR_DEFAULT = os.path.join("data", "real")
@@ -111,19 +111,6 @@ def word_recall(phrases: Sequence[str], ocr_text: str) -> Dict[str, Any]:
     }
 
 
-# Pillow's convert("L"): ITU-R 601-2 luma in 16-bit fixed point,
-# (19595 R + 38470 G + 7471 B + 0x8000) >> 16 (not cv2's 15-bit RGB2GRAY)
-_L24 = np.array([19595, 38470, 7471], np.int32)
-
-
-def _load_gray(path: str) -> np.ndarray:
-    """The photo in gray as ``np.asarray(Image.open(path).convert("L"),
-    np.float32)`` gives it, without Pillow: ``io.load_rgb`` (PNG reader,
-    C++ JPEG decoder) and Pillow's fixed-point luma."""
-    rgb = load_rgb(path)
-    return ((rgb[..., :3].astype(np.int32) @ _L24 + 0x8000) >> 16).astype(np.float32)
-
-
 def evaluate_real(
     real_dir: str = REAL_DIR_DEFAULT,
     *,
@@ -173,7 +160,7 @@ def evaluate_real(
             path = os.path.join(real_dir, *key.split("/"), img_name)
             if not os.path.isfile(path):
                 path = os.path.join(real_dir, os.path.dirname(key), img_name)
-            img = _load_gray(path)
+            img = load_gray(path)
             if auto_rotate:
                 res, k = read_with_rotations(engine, img, reread_conf_ths=reread_conf_ths)
             else:

@@ -8,9 +8,10 @@ local Ollama models.
 
 Counterpart of ``bbocr_tpu/cli/process_book.py``, with its options and
 defaults: the Ollama backend (``--llm-backend`` also takes ``openai``,
-``gemini``, ``heuristic``, and ``tpu``, the on-chip PageReader, which is not
-ported and fails), the CRAFT + CRNN engine (``--ocr-engine tesseract`` for
-the escape hatch), a model warm-up unless ``--no-warm-model``, the rotation
+``gemini``, ``heuristic``, and ``tpu``, the PageReader on ``--device``
+reading ``checkpoints/vlm.npz`` unless ``--model`` names a checkpoint
+file), the CRAFT + CRNN engine (``--ocr-engine tesseract`` for the escape
+hatch), a model warm-up unless ``--no-warm-model``, the rotation
 search only with ``--auto-rotate``, and the auto-crop to the text region
 only with ``--crop-ocr`` (margin ``--crop-margin``, default 16 px). The
 extractor takes the process-wide shared engine wrapped in ``BatchingOCR``

@@ -34,12 +34,12 @@ def _sync(x) -> None:
 
 
 def _load_photos(n: int):
-    from bbocr_tpu_torch.cli.evaluate_real import _load_gray
+    from bbocr_tpu_torch.io import load_gray
 
     paths = sorted(glob.glob(os.path.join(ROOT, "data", "real", "photos", "*", "*.jpg")))
     paths += sorted(glob.glob(os.path.join(ROOT, "data", "real", "covers", "*.png")))
     paths += sorted(glob.glob(os.path.join(ROOT, "books", "*", "*.jpg")))
-    return [_load_gray(p) for p in paths[:n]]
+    return [load_gray(p) for p in paths[:n]]
 
 
 def main(argv=None):

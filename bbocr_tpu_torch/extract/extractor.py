@@ -9,8 +9,10 @@ and read by the OCR engine; the text goes into the prompt of a vision LLM
 ``llm/client.py``) together with JPEGs of every photo, or is structured by
 the heuristics (``llm_backend="heuristic"``). The reply is repaired
 (``jsonrepair.py``), checked against the schema, and falls back to the
-all-null metadata when it does not parse. The on-chip PageReader backend
-(``"tpu"``) is not ported and raises ``NotImplementedError``.
+all-null metadata when it does not parse. ``llm_backend="tpu"`` is the
+PageReader on ``device`` (``llm/native_vlm.py``): it reads the first
+photo's JPEG of the model inputs and ignores the prompt, and needs no HTTP
+session.
 
 The OCR route is the JAX extractor's. With no ``engine`` argument the
 extractor takes the process-wide shared engine, as the JAX one does: an
@@ -556,6 +558,7 @@ class BookMetadataExtractor:
 
     def _call_llm(self, prompt: str, images_b64: List[str]) -> str:
         from bbocr_tpu_torch.llm import OllamaClient, create_llm_client
+        from bbocr_tpu_torch.llm.client import NATIVE_BACKENDS
 
         self._last_llm_usage = None
         if self.llm_backend == "ollama":
@@ -568,7 +571,10 @@ class BookMetadataExtractor:
                     last_err = e
                     time.sleep(1.0 * (attempt + 1))
             raise Exception(f"Error from Ollama API: {last_err}")
-        client = create_llm_client(self.llm_backend, session=self.session)
+        if self.llm_backend in NATIVE_BACKENDS:
+            client = create_llm_client(self.llm_backend, device=self.device)
+        else:
+            client = create_llm_client(self.llm_backend, session=self.session)
         out = client.generate(self.model, prompt, images_b64, self.llm_timeout_seconds)
         # per-request cost accounting for metered cloud backends
         self._last_llm_usage = getattr(client, "last_usage", None)

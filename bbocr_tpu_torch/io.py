@@ -7,7 +7,10 @@ and upper-left neighbours, so every pixel of one anti-diagonal can be
 decoded at once whatever filter each row uses. Baseline JPEGs are decoded
 by the C++ decoder of ``native/jpeg.py``, bit for bit as Pillow decodes
 them. Other images (progressive JPEG, palette or 16-bit PNG, other formats)
-go through Pillow, imported only then.
+go through Pillow, imported only then. ``decode_rgb`` does the same for
+an image's bytes, by their signature, and ``load_gray`` gives what
+Pillow's ``convert("L")`` gives of either (``pil_gray_u8``: its 16-bit
+fixed-point luma).
 
 The encoding side reproduces what the JAX extractor asks of Pillow:
 ``pil_thumbnail_u8`` is ``Image.thumbnail`` (Pillow 12: the aspect-keeping
@@ -19,6 +22,7 @@ encoder of ``native/jpeg.py``, byte-equal with Pillow's JPEG.
 
 from __future__ import annotations
 
+import io
 import math
 import struct
 import zlib
@@ -26,7 +30,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from bbocr_tpu_torch.native.jpeg import UnsupportedJPEG, encode_rgb, read_jpeg
+from bbocr_tpu_torch.native.jpeg import UnsupportedJPEG, decode_jpeg, encode_rgb, read_jpeg
 from bbocr_tpu_torch.ops.resize import pil_reduce_u8, pil_resample_u8
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -103,16 +107,24 @@ def decode_png(blob: bytes, path: str = "PNG") -> np.ndarray:
     return img[..., 0] if c == 1 else img
 
 
-def _read_with_pillow(path: str, why: str = "") -> np.ndarray:
+def _read_with_pillow(source, why: str = "", name: Optional[str] = None) -> np.ndarray:
+    """``source`` (a path or a file object) in RGB through Pillow; ``name``
+    stands for it in the error."""
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(
-            f"{path}: reading this image needs Pillow, which is not installed "
+            f"{name or source}: reading this image needs Pillow, which is not installed "
             f"(PNGs of 8-bit gray, RGB or RGBA and baseline JPEGs are read without it){why}"
         ) from e
-    with Image.open(path) as img:
+    with Image.open(source) as img:
         return np.asarray(img.convert("RGB"))
+
+
+def _as_rgb(arr: np.ndarray) -> np.ndarray:
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    return arr[..., :3].astype(np.uint8)
 
 
 def load_rgb(path_or_array) -> np.ndarray:
@@ -131,9 +143,40 @@ def load_rgb(path_or_array) -> np.ndarray:
             arr = _read_with_pillow(str(path_or_array), f": {e}")
     else:
         arr = _read_with_pillow(str(path_or_array))
-    if arr.ndim == 2:
-        arr = np.stack([arr] * 3, axis=-1)
-    return arr[..., :3].astype(np.uint8)
+    return _as_rgb(arr)
+
+
+def decode_rgb(blob: bytes, name: str = "image") -> np.ndarray:
+    """An image's bytes -> (H, W, 3) uint8 RGB, as ``load_rgb`` reads a file:
+    PNGs and baseline JPEGs (told by their signatures) without Pillow,
+    anything else through it."""
+    try:
+        if blob.startswith(_PNG_SIGNATURE):
+            return _as_rgb(decode_png(blob, name))
+        if blob.startswith(b"\xff\xd8"):
+            return _as_rgb(decode_jpeg(blob, name))
+        why = ""
+    except (UnsupportedPNG, UnsupportedJPEG) as e:
+        why = f": {e}"
+    return _as_rgb(_read_with_pillow(io.BytesIO(blob), why, name))
+
+
+# Pillow's convert("L"): ITU-R 601-2 luma in 16-bit fixed point,
+# (19595 R + 38470 G + 7471 B + 0x8000) >> 16 (not cv2's 15-bit RGB2GRAY)
+_L24 = np.array([19595, 38470, 7471], np.int32)
+
+
+def pil_gray_u8(rgb: np.ndarray) -> np.ndarray:
+    """``Image.fromarray(rgb).convert("L")`` of an (H, W, 3) uint8 array
+    (alpha, where there is one, ignored as Pillow ignores it)."""
+    return ((rgb[..., :3].astype(np.int32) @ _L24 + 0x8000) >> 16).astype(np.uint8)
+
+
+def load_gray(source) -> np.ndarray:
+    """``np.asarray(Image.open(source).convert("L"), np.float32)`` without
+    Pillow, for a path (``load_rgb``) or an image's bytes (``decode_rgb``)."""
+    rgb = decode_rgb(source) if isinstance(source, bytes) else load_rgb(source)
+    return pil_gray_u8(rgb).astype(np.float32)
 
 
 def as_u8_image(arr) -> np.ndarray:

@@ -5,11 +5,14 @@ from bbocr_tpu_torch.llm.client import (
     OpenAIClient,
     create_llm_client,
 )
+from bbocr_tpu_torch.llm.native_vlm import NativeVLMClient, get_native_client
 
 __all__ = [
     "LLMClient",
     "OllamaClient",
     "OpenAIClient",
     "GeminiClient",
+    "NativeVLMClient",
     "create_llm_client",
+    "get_native_client",
 ]

@@ -14,7 +14,9 @@ GOOGLE_API_KEY / GEMINI_API_KEY / GOOGLE_API_BASE.
 
 ``requests`` is imported only where a client is built without a session
 (the machine with the card has no HTTP library; callers pass their own
-session there). The on-chip PageReader backend is not ported.
+session there). ``"tpu"`` (also ``"native"`` and ``"pagereader"``) is the
+PageReader on the card (``llm/native_vlm.py``): no HTTP, no session, one
+cached client per checkpoint and device.
 """
 
 from __future__ import annotations
@@ -196,7 +198,12 @@ class GeminiClient(LLMClient):
         raise RuntimeError(f"Gemini request failed after fallbacks: {last_err}")
 
 
-def create_llm_client(backend: str, session: Optional[Any] = None) -> LLMClient:
+NATIVE_BACKENDS = ("tpu", "native", "pagereader")
+
+
+def create_llm_client(backend: str, session: Optional[Any] = None, device="cuda") -> LLMClient:
+    """The client of ``backend``; ``session`` serves the HTTP backends and
+    ``device`` the PageReader's."""
     backend = (backend or "ollama").lower()
     if backend == "ollama":
         return OllamaClient(session)
@@ -204,8 +211,10 @@ def create_llm_client(backend: str, session: Optional[Any] = None) -> LLMClient:
         return OpenAIClient(session)
     if backend == "gemini":
         return GeminiClient(session)
-    if backend in ("tpu", "native", "pagereader"):
-        raise NotImplementedError(
-            f"llm_backend={backend!r} (the on-chip PageReader) is not ported yet: see ROADMAP.md Queue 1 item 15"
-        )
+    if backend in NATIVE_BACKENDS:
+        # The PageReader on the card: no model server at all. Cached
+        # process-wide: the parameters stay on the device across requests.
+        from bbocr_tpu_torch.llm.native_vlm import get_native_client
+
+        return get_native_client(device=device)
     raise ValueError(f"Unknown LLM backend: {backend}")

@@ -122,3 +122,56 @@ def crnn_state_dict(params: Any) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected CRNN parameter {key}")
     return _to_tensors(sd)
+
+
+_ATTN_PARTS = ("query", "key", "value", "out")
+
+
+def _pagereader_block(prefix: str, parts: list, leaf: str, value: np.ndarray) -> Dict[str, np.ndarray]:
+    """A ``Block`` leaf under ``prefix``: ``LayerNorm_i`` -> ``norms.i``,
+    ``MultiHeadDotProductAttention_i/{query,key,value,out}`` -> ``attns.i``
+    (the ``DenseGeneral`` kernels (d, heads, hd) and (heads, hd, d)
+    flattened to (d, d) first), ``Dense_0``/``Dense_1`` -> ``fc1``/``fc2``."""
+    name = parts[0]
+    if name.startswith("LayerNorm_"):
+        return _layer(f"{prefix}.norms.{_num(name)}", leaf, value)
+    if name.startswith("MultiHeadDotProductAttention_") and len(parts) == 2 and parts[1] in _ATTN_PARTS:
+        path = f"{prefix}.attns.{_num(name)}.{parts[1]}"
+        if leaf == "kernel":
+            return {f"{path}.weight": value.reshape(-1, value.shape[-1]).T if parts[1] == "out"
+                    else value.reshape(value.shape[0], -1).T}
+        return _layer(path, leaf, value.reshape(-1))
+    if name in ("Dense_0", "Dense_1"):
+        return _layer(f"{prefix}.fc{int(_num(name)) + 1}", leaf, value)
+    raise KeyError(f"unexpected PageReader block parameter {prefix}/{'/'.join(parts)}/{leaf}")
+
+
+def pagereader_state_dict(params: Any) -> Dict[str, torch.Tensor]:
+    """A ``PageReader`` flax tree (``checkpoints/vlm.npz``) -> the state dict
+    of ``models.vlm.PageReader``. ``ctc_head`` is carried over where the
+    tree has it (a tree initialised with ``with_ctc=True``); the shipped
+    checkpoint has none. The patch conv's (8, 8, 1, dim) kernel becomes a
+    (dim, 64) product in (kh, kw) tap order; embeddings keep their layout."""
+    sd: Dict[str, np.ndarray] = {}
+    for key, value in _variables(params):
+        parts = key.split("/")
+        leaf = parts[-1]
+        if parts[0] == "encoder":
+            if parts[1] == "Conv_0":
+                sd.update({"encoder.conv.weight": value.reshape(-1, value.shape[-1]).T} if leaf == "kernel"
+                          else _layer("encoder.conv", leaf, value))
+            elif parts[1] == "LayerNorm_0":
+                sd.update(_layer("encoder.norm", leaf, value))
+            elif parts[1].startswith("Block_"):
+                sd.update(_pagereader_block(f"encoder.blocks.{_num(parts[1])}", parts[2:-1], leaf, value))
+            else:
+                raise KeyError(f"unexpected PageReader parameter {key}")
+        elif re.fullmatch(r"blocks_\d+", parts[0]):
+            sd.update(_pagereader_block(f"blocks.{_num(parts[0])}", parts[1:-1], leaf, value))
+        elif parts[0] in ("tok_embed", "pos_embed") and leaf == "embedding":
+            sd[f"{parts[0]}.weight"] = value
+        elif parts[0] in ("out_norm", "head", "ctc_head") and len(parts) == 2:
+            sd.update(_layer(parts[0], leaf, value))
+        else:
+            raise KeyError(f"unexpected PageReader parameter {key}")
+    return _to_tensors(sd)

@@ -379,10 +379,11 @@ class ScannerService:
 
         @app.route("/api/test_model", methods=("POST",))
         async def test_model(req: Request):
-            session = self.session
+            from bbocr_tpu_torch.llm.client import NATIVE_BACKENDS
 
             payload = req.json()
             backend = (payload.get("backend") or "ollama").lower()
+            session = None if backend in NATIVE_BACKENDS else self.session
             model = (payload.get("model") or "").strip()
             bad = validate_backend_model(backend, model)
             if bad:
@@ -405,7 +406,7 @@ class ScannerService:
                     }
                 from bbocr_tpu_torch.llm import create_llm_client
 
-                client = create_llm_client(backend, session=session)
+                client = create_llm_client(backend, session=session, device=self.device)
                 out = client.generate(model, "ping", [], timeout_seconds=12.0)
                 return {"ok": True, "backend": backend, "model": model, "prompt": "ping", "detail": str(out)[:200]}
             except Exception as e:

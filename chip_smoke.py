@@ -164,7 +164,29 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    ``tests/data/pricing_jax.json`` (times, ids and paths masked), as is the
    stdlib AbeBooks parser on every recorded page (there is no bs4 here).
    While a job runs the service sends every print of the process into the
-   job's log, so the phase prints after the service has shut down.
+   job's log, so the phase prints after the service has shut down;
+13. the PageReader (``models/vlm.py``, ``llm/native_vlm.py``) on the shipped
+   ``checkpoints/vlm.npz``, on the 24 pages of ``tests/data/vlm_jax_f32.json``
+   (the first image of every book ``vlm_eval --real`` scores and the covers
+   of ``books/1`` to ``books/3``, each loaded as the client loads a page):
+   (a) in float32 (TF32 off) each greedy reading must equal the JAX
+   package's float32 CPU run, or be a pinned reading (``KNOWN_VLM_READINGS``)
+   whose JAX top-2 logit margin at the first differing step is below 1e-4;
+   the teacher-forced logits on JAX's ids are printed against JAX's; (b)
+   and (d) in bfloat16, the client's type: ``vlm_eval --real`` on the card
+   reads the first 21 pages, the three covers are read directly, each
+   page's token agreement with the JAX package's bfloat16 CPU run and the
+   largest logit difference of a teacher-forced pass printed, then the
+   report beside JAX's (``vlm_jax_bf16.json``; the same books and fields
+   required); (c) the no-engine extractor with ``llm_backend="tpu"`` on
+   ``books/1`` to ``books/3`` and one service job (``llm_backend=tpu``,
+   ``model=checkpoints/vlm.npz``), the cached client's model a float32
+   PageReader and the shared engine float32: metadata equal to the JAX
+   extractor's recorded run, each kernel launched once per OCR'd photo
+   (launch counts set to 0 just before and read just after), then one
+   book timed with the default bfloat16 model; (e) the encoder's ms, the
+   decode's first and warm seconds, and one warm decode's host ms, device
+   ms and kernels from torch.profiler.
 
 Phases 4 to 7 run the engine of the first slices (device warps from the
 canvas, greedy decode), as their references were recorded; phases 8 and 9
@@ -181,6 +203,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import hashlib
 import json
 import math
@@ -1478,12 +1501,12 @@ def check_threshold_witness(dev, card) -> None:
     JAX's (the CPU maps differ by ``max_abs_diff_region``), and each such
     pixel on the port's side of the threshold, where the known reading
     comes from."""
-    from bbocr_tpu_torch.cli.evaluate_real import _load_gray
+    from bbocr_tpu_torch.io import load_gray
     from bbocr_tpu_torch.runtime import bucketing
 
     with open(WITNESS) as f:
         w = json.load(f)
-    gray = engine_module._to_gray_u8(np.rot90(_load_gray(os.path.join(REAL_DIR, w["book"], w["image"])), w["k"]))
+    gray = engine_module._to_gray_u8(np.rot90(load_gray(os.path.join(REAL_DIR, w["book"], w["image"])), w["k"]))
     h, wd = w["canvas"]
     _, oh, ow = bucketing.letterbox_params(gray.shape[0], gray.shape[1], bucketing.CanvasSpec(h, wd))
     batch = np.zeros((1, h, wd), np.float32)
@@ -2087,6 +2110,295 @@ def check_service(dev, card) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the PageReader (models/vlm.py, llm/native_vlm.py)
+# ---------------------------------------------------------------------------
+
+VLM_REFERENCE = {dt: os.path.join(ROOT, "tests", "data", f"vlm_jax_{dt}.json") for dt in ("f32", "bf16")}
+VLM_CKPT = os.path.join(CKPT, "vlm.npz")
+VLM_MARGIN = 1e-4
+# Greedy readings of the card in float32 that differ from the JAX package's
+# float32 CPU run, each where JAX's top-2 logit margin at the first
+# differing step is below VLM_MARGIN: (page, first differing slot).
+KNOWN_VLM_READINGS: set = set()
+
+
+def vlm_reference(dt: str) -> tuple:
+    """(the recorded JAX run of ``scripts/torch_port_reference.py --vlm``,
+    its teacher-forced logits per page)."""
+    with open(VLM_REFERENCE[dt]) as f:
+        ref = json.load(f)
+    with np.load(os.path.join(os.path.dirname(VLM_REFERENCE[dt]), ref["logits_file"])) as lg:
+        return ref, [lg[f"page{i}"] for i in range(len(ref["pages"]))]
+
+
+@functools.lru_cache(maxsize=None)
+def vlm_page(rel: str, dev) -> torch.Tensor:
+    """A repository image as the client loads it, (1, 256, 192, 1) on ``dev``
+    (loaded once: phases 13a, 13b and 13e read the same pages)."""
+    import base64
+
+    from bbocr_tpu_torch.llm.native_vlm import NativeVLMClient
+
+    with open(os.path.join(ROOT, rel), "rb") as f:
+        page = NativeVLMClient._page_from_b64(base64.b64encode(f.read()).decode())
+    return torch.from_numpy(page)[None, ..., None].to(dev)
+
+
+def vlm_model(dev, dtype) -> torch.nn.Module:
+    from bbocr_tpu_torch.models.vlm import PageReader
+    from bbocr_tpu_torch.utils.checkpoint import load_params
+
+    return PageReader(dtype=dtype).load_params(load_params(VLM_CKPT)).to(dev).eval()
+
+
+def top2_margin(row: np.ndarray) -> float:
+    top = np.sort(row)[-2:]
+    return float(top[1] - top[0])
+
+
+def timed_greedy(model, page) -> tuple:
+    """(ids on the host, seconds of one synchronised greedy decode)."""
+    from bbocr_tpu_torch.models.vlm import greedy_generate
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = greedy_generate(model, page)
+    torch.cuda.synchronize()
+    return ids[0].cpu().tolist(), time.perf_counter() - t0
+
+
+def check_vlm_float32(dev, card) -> list:
+    """13(a): the shipped checkpoint in float32 (TF32 off) on the 24 pages
+    of the reference: each greedy reading equal to the JAX package's float32
+    CPU run, or a pinned reading (``KNOWN_VLM_READINGS``) whose JAX top-2
+    margin at the first differing step is below 1e-4; the teacher-forced
+    logits on JAX's ids printed against JAX's. Returns the greedy seconds."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref, ref_logits = vlm_reference("f32")
+    model = vlm_model(dev, torch.float32)
+    failed, seconds, worst = [], [], 0.0
+    for p, want_logits in zip(ref["pages"], ref_logits):
+        page = vlm_page(p["page"], dev)
+        ids, s = timed_greedy(model, page)
+        seconds.append(s)
+        with torch.no_grad():
+            forced = model(page, torch.tensor([p["ids"]], device=dev))[0, : p["steps"]].cpu().numpy()
+        diff = float(np.abs(forced - want_logits).max())
+        worst = max(worst, diff)
+        if ids == p["ids"]:
+            print(f"  {p['page']}: equal to JAX ({p['steps']} steps, forced logits within {diff:.3g}; {s:.3f} s)",
+                  flush=True)
+            continue
+        slot = next(i for i, (a, b) in enumerate(zip(ids, p["ids"])) if a != b)
+        margin, card_margin = top2_margin(want_logits[slot - 1]), top2_margin(forced[slot - 1])
+        known = (p["page"], slot) in KNOWN_VLM_READINGS and margin < VLM_MARGIN
+        print(f"  {p['page']}: DIFFERS from JAX first at slot {slot} ({ids[slot]} against {p['ids'][slot]}); JAX's "
+              f"top-2 margin there {margin:.3g}, the card's {card_margin:.3g}; {'pinned' if known else 'not pinned'}",
+              flush=True)
+        if not known:
+            failed.append((p["page"], slot, margin))
+    print(f"13a float32: {len(ref['pages']) - len(failed)} of {len(ref['pages'])} pages as JAX or pinned; forced "
+          f"logits within {worst:.3g} of JAX's; greedy decode {statistics.median(seconds):.3f} s per page (median, "
+          f"first {seconds[0]:.3f}); {card}", flush=True)
+    if failed:
+        fail(f"the card's float32 PageReader reads otherwise than JAX's: {failed}")
+    return seconds
+
+
+@contextlib.contextmanager
+def recorded_greedy(record: list):
+    """Within the block every ``models.vlm.greedy_generate`` call appends
+    (its ids on the host, its seconds) to ``record``."""
+    from bbocr_tpu_torch.models import vlm as vlm_module
+
+    greedy = vlm_module.greedy_generate
+
+    def recording(model, page, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids = greedy(model, page, *args, **kw)
+        torch.cuda.synchronize()
+        record.append((ids.cpu().tolist(), time.perf_counter() - t0))
+        return ids
+
+    vlm_module.greedy_generate = recording
+    try:
+        yield record
+    finally:
+        vlm_module.greedy_generate = greedy
+
+
+def check_vlm_bfloat16(dev, card) -> list:
+    """13(b) and 13(d): the client's bfloat16 on the same pages, printed
+    against the JAX package's bfloat16 CPU run: ``vlm_eval --real`` (the
+    CLI, on the card) reads the first 21, the last three are read directly;
+    token agreement per page and the largest logit difference of a
+    teacher-forced pass on JAX's ids. Then the ``--real`` report beside
+    JAX's. Returns the greedy seconds."""
+    from bbocr_tpu_torch.cli import vlm_eval
+    from bbocr_tpu_torch.models import vlm as vlm_module
+
+    ref, ref_logits = vlm_reference("bf16")
+    record: list = []
+    with recorded_greedy(record):
+        report = vlm_eval.main(["--real", "--device", str(dev), "--real-dir", REAL_DIR, "--ckpt", VLM_CKPT])["real"]
+        model = vlm_model(dev, torch.bfloat16)
+        for p in ref["pages"][len(record):]:
+            vlm_module.greedy_generate(model, vlm_page(p["page"], dev))
+    if len(record) != len(ref["pages"]):
+        fail(f"13b read {len(record)} pages, the reference has {len(ref['pages'])}")
+    equal, worst = 0, 0.0
+    for p, want_logits, (ids, _) in zip(ref["pages"], ref_logits, record):
+        with torch.no_grad():
+            forced = model(vlm_page(p["page"], dev), torch.tensor([p["ids"]], device=dev))[0, : p["steps"]]
+        diff = float(np.abs(forced.cpu().numpy() - want_logits).max())
+        worst = max(worst, diff)
+        same = ids[0] == p["ids"]
+        equal += same
+        agree = sum(a == b for a, b in zip(ids[0], p["ids"]))
+        print(f"  {p['page']}: {'equal to' if same else 'differs from'} JAX's bfloat16 ids ({agree} of "
+              f"{len(p['ids'])} slots), forced logits within {diff:.3g}", flush=True)
+    seconds = [s for _, s in record]
+    print(f"13b bfloat16: {equal} of {len(record)} pages read as JAX's bfloat16 CPU run; forced logits within "
+          f"{worst:.3g}; greedy decode {statistics.median(seconds):.3f} s per page (median, first {seconds[0]:.3f}); "
+          f"{card}", flush=True)
+    want = ref["eval_real"]
+    print(f"13d vlm_eval --real, bfloat16: books {report['books']}, fields {report['fields']}, exact "
+          f"{report['exact_acc']}, fuzzy {report['fuzzy_acc']} (JAX bfloat16 on the CPU: books {want['books']}, "
+          f"fields {want['fields']}, exact {want['exact_acc']}, fuzzy {want['fuzzy_acc']}); rows "
+          f"{'equal' if report['rows'] == want['rows'] else 'differ'}; {card}", flush=True)
+    if report["books"] != want["books"] or report["fields"] != want["fields"]:
+        fail(f"vlm_eval --real scored {report['books']} books and {report['fields']} fields, JAX "
+             f"{want['books']} and {want['fields']}")
+    return seconds
+
+
+def tpu_route_meta(meta: dict) -> dict:
+    meta = dict(meta)
+    info = dict(meta.pop("_processing_info"))
+    for key in ("engine_timings", "ocr_boxes"):
+        info.pop(key, None)
+    return {**meta, "_processing_info": info}
+
+
+def check_tpu_route(dev, card) -> dict:
+    """13(c): the no-engine extractor with ``llm_backend="tpu"`` on
+    ``books/1`` to ``books/3`` and one service job (``llm_backend=tpu``,
+    ``model=checkpoints/vlm.npz``, as the UI posts it) on ``books/1``, the
+    cached client's model a float32 PageReader (``client._model``) and the
+    shared engine float32: the metadata equal to the JAX extractor's
+    recorded run, each kernel launched once per OCR'd photo (two per book).
+    Then one book with the client's default bfloat16 model, timed."""
+    import shutil
+    import tempfile
+
+    from bbocr_tpu_torch.llm import native_vlm
+    from bbocr_tpu_torch.models.vlm import PageReader
+    from bbocr_tpu_torch.server.app import ScannerService
+    from scripts.torch_port_reference import ServiceThread, book_images, job_record, run_job, wait_jobs_idle
+
+    if os.environ.get("BB_OCR_BATCHING") is not None:
+        fail("BB_OCR_BATCHING is set: phase 13 runs the default wrapping")
+    ref, _ = vlm_reference("f32")
+    route = ref["route"]
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the client resolves checkpoints/vlm.npz, as the UI names it, from the working directory
+    native_vlm._CLIENT_CACHE.clear()
+    client = native_vlm.get_native_client(device=dev)
+    client._model = PageReader(dtype=torch.float32)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vlm_")
+    out, err = sys.stdout, sys.stderr
+    try:
+        with float32_engines():
+            ext = BookMetadataExtractor(llm_backend="tpu", warm_model=False, device=dev)
+            kernels.reset_launches()
+            metas, seconds = {}, []
+            for book in route["books"]:
+                t0 = time.perf_counter()
+                metas[book] = ext.process_book_directory(os.path.join(BOOKS_DIR, book))
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+            launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+            kernels.reset_launches()
+            service = ScannerService(data_dir=tmp, books_dir=BOOKS_DIR, device=dev)
+            with ServiceThread(service) as srv:
+                t0 = time.perf_counter()
+                job = run_job(srv.base, book_images("1"), {"llm_backend": "tpu", "model": native_vlm.DEFAULT_CKPT,
+                                                           "run_ocr": "true"})
+                idle = wait_jobs_idle(service)
+                while (sys.stdout is not out or sys.stderr is not err) and time.perf_counter() - t0 < 900:
+                    time.sleep(0.01)  # the job's runner puts the streams back after its status
+            sys.stdout, sys.stderr = out, err
+            torch.cuda.synchronize()
+            job_launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+            client._model = PageReader()  # the client's default, bfloat16
+            t0 = time.perf_counter()
+            bf16_meta = ext.process_book_directory(os.path.join(BOOKS_DIR, "1"))
+            torch.cuda.synchronize()
+            bf16_seconds = time.perf_counter() - t0
+    finally:
+        sys.stdout, sys.stderr = out, err
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = []
+    for book, s in zip(route["books"], seconds):
+        got, want = tpu_route_meta(metas[book]), route["runs"][book]
+        print(f"  tpu route book {book}: {'equal to JAX' if got == want else 'DIFFERS from JAX'}; {s:.3f} s; "
+              f"{json.dumps({k: v for k, v in got.items() if not k.startswith('_')})}", flush=True)
+        if got != want:
+            failed.append(book)
+            print(f"    got {json.dumps(got)}\n    JAX {json.dumps(want)}", flush=True)
+    record = job_record(job, []) if "result" in job else job
+    want = dict(route["runs"]["1"])
+    want["_processing_info"] = {**want["_processing_info"], "model_used": native_vlm.DEFAULT_CKPT}
+    job_meta = record.get("meta")
+    if job_meta is not None:
+        job_meta = tpu_route_meta(job_meta)
+    print(f"  service job (tpu, {native_vlm.DEFAULT_CKPT}) on book 1: {record.get('status')}, "
+          f"{job.get('seconds', float('nan')):.3f} s, {'equal to JAX' if job_meta == want else 'DIFFERS from JAX'}",
+          flush=True)
+    print(f"13c: launches on the route {json.dumps(launches)}, on the job {json.dumps(job_launches)}; a bfloat16 book "
+          f"{bf16_seconds:.3f} s ({json.dumps({k: v for k, v in bf16_meta.items() if not k.startswith('_')})}); "
+          f"{card}", flush=True)
+    if failed or job_meta != want or not idle:
+        fail(f"the tpu route differs from the JAX extractor's: books {failed}, job {record} (all ended: {idle})")
+    n_route = 2 * len(route["books"])
+    for name in launches:
+        if launches[name] != n_route or job_launches[name] != 2:
+            fail(f"kernel {name} launched {launches[name]} times by the route ({n_route} expected) and "
+                 f"{job_launches[name]} by the job (2 expected)")
+    return {name: launches[name] + job_launches[name] for name in launches}
+
+
+def time_vlm(dev, card, f32_seconds, bf16_seconds) -> None:
+    """13(e): the client's bfloat16 model on a cover: the encoder between
+    CUDA events; the greedy decode's first call and warm median (13b's
+    decodes; float32's from 13a); one warm decode timed on the host, then
+    one under torch.profiler (device ms, kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bbocr_tpu_torch.models.vlm import greedy_generate
+
+    model = vlm_model(dev, torch.bfloat16)
+    page = vlm_page("data/real/covers/book1.png", dev)
+    with torch.no_grad():
+        enc = median_ms(lambda: model.encode(page))
+    _, host = timed_greedy(model, page)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        greedy_generate(model, page)
+        torch.cuda.synchronize()
+    run = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = sum(e.time_range.end - e.time_range.start for e in run) / 1e3
+    print(f"13e: encoder {enc:.3f} ms; greedy decode bfloat16 first {bf16_seconds[0]:.3f} s, warm median "
+          f"{statistics.median(bf16_seconds[1:]):.3f} s (float32: first {f32_seconds[0]:.3f} s, warm median "
+          f"{statistics.median(f32_seconds[1:]):.3f} s); one warm decode of book1.png: {host * 1e3:.1f} ms host, "
+          f"{device:.1f} ms device in {len(run)} kernels ({len(run) / 191:.0f} per step; device idle "
+          f"{100 * (1 - device / (host * 1e3)):.1f} %); {card}", flush=True)
+
+
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
@@ -2208,13 +2520,22 @@ def main() -> int:
     phase("phase 12: the scanner service on the card: jobs, review, pricing, approval")
     for name, count in check_service(dev, card).items():
         report[name]["launches_service"] = count
+    phase("phase 13a: the PageReader on the shipped checkpoint, float32, against the JAX package's readings")
+    f32_seconds = check_vlm_float32(dev, card)
+    phase("phase 13b/13d: bfloat16, the client's type: vlm_eval --real and the book covers")
+    bf16_seconds = check_vlm_bfloat16(dev, card)
+    phase("phase 13c: the tpu route (extractor, service job), float32")
+    for name, count in check_tpu_route(dev, card).items():
+        report[name]["launches_pagereader_route"] = count
+    phase("phase 13e: PageReader times")
+    time_vlm(dev, card, f32_seconds, bf16_seconds)
     phase("end: the kernels' line and the result")
 
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed",
              "launches_default_route", "launches_shared_route", "launches_autocrop_route", "launches_evaluate_books",
-             "launches_llm_route", "launches_service"]
+             "launches_llm_route", "launches_service", "launches_pagereader_route"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ references for the PyTorch port.
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --llm-route [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --server-route [--canvas 416x320] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --pricing [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --vlm [--dtype float32|bfloat16] [--out PATH]
 
 Default mode: the photo goes through ``_chain_gray_pallas`` and then
 ``OCREngine.readtext`` in the given compute type with the configuration the
@@ -183,6 +184,24 @@ back, look up, select, finalize both ways, the aliases), masked; and
 ``bbocr_tpu.cli.pricing --from-json <accepted> --select``; to
 ``tests/data/pricing_jax.json`` (``chip_smoke.py`` phase 12,
 ``tests/test_torch_pricing.py``).
+
+``--vlm``: the JAX PageReader (``bbocr_tpu/models/vlm.py``) on the shipped
+``checkpoints/vlm.npz``, computing in the chosen type, on ``VLM_PAGES``
+(the first image of every book ``vlm_eval --real`` scores, the five covers
+among them, and the covers of ``books/1`` to ``books/3``), each loaded as
+the JAX client loads it (``NativeVLMClient._page_from_b64`` of the file's
+bytes): the greedy ids of ``greedy_generate`` and the teacher-forced
+logits of one jitted pass on those ids at every step up to the first EOS
+(stored beside the JSON in ``vlm_jax_f32_logits.npz``, ``_bf16``), and the
+``vlm_eval --real`` report (``eval_real``). In float32 it also records the
+JAX extractor's ``tpu`` route (``llm_backend="tpu"``, the cached client
+given a float32 ``PageReader`` through ``client._model``, its shared engine
+float32 in the default configuration): the metadata of ``books/1`` to
+``books/3`` on the canvas menu (``route``) and of ``books/1`` on one 416x320
+canvas (``route_416x320``), and ``vlm_bench --backend tpu --limit 2`` on
+that canvas (``bench``, seconds aside). To ``tests/data/vlm_jax_f32.json``
+(``_bf16``), with the flax and JAX versions; ``chip_smoke.py`` phase 13 and
+``tests/test_torch_vlm.py`` read them.
 
 ``--jpeg-digests``: the SHA-256 of Pillow's RGB decoding of every JPEG in
 ``books/`` and ``data/real/photos/``, with its shape, to
@@ -836,6 +855,111 @@ def llm_route() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The PageReader (--vlm): importable without JAX for VLM_PAGES
+# ---------------------------------------------------------------------------
+
+
+def vlm_pages() -> list:
+    """The pages of the PageReader's references, as repository paths: the
+    first image of every book of ``data/real/ground_truth.json`` in the
+    order ``vlm_eval --real`` scores them (sorted keys; a cover's PNG, else
+    the first of the sorted images), then the first JPEG of ``books/1`` to
+    ``books/3``."""
+    real = os.path.join(ROOT, "data", "real")
+    with open(os.path.join(real, "ground_truth.json")) as f:
+        books = json.load(f)["books"]
+    pages = []
+    for key, truth in sorted(books.items()):
+        if key.startswith("covers/"):
+            paths = [os.path.join(real, key + ".png")]
+        else:
+            paths = sorted(os.path.join(real, key, img) for img in truth.get("images", []))
+        if paths and os.path.isfile(paths[0]):
+            pages.append(os.path.relpath(paths[0], ROOT))
+    return pages + [os.path.relpath(book_images(b)[0], ROOT) for b in VLM_ROUTE_BOOKS]
+
+
+VLM_ROUTE_BOOKS = ["1", "2", "3"]
+VLM_SMALL_CANVAS = (416, 320)
+
+
+def _vlm_route_meta(meta: dict) -> dict:
+    meta = dict(meta)
+    info = dict(meta.pop("_processing_info"))
+    info.pop("engine_timings", None)
+    return {**meta, "_processing_info": info}
+
+
+def vlm_reference(dtype: str) -> tuple:
+    """(the JSON record, the logits arrays) of ``--vlm``."""
+    import base64
+
+    import flax
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from bbocr_tpu.cli import vlm_bench as jax_vlm_bench
+    from bbocr_tpu.cli import vlm_eval as jax_vlm_eval
+    from bbocr_tpu.extract import extractor as jax_extractor
+    from bbocr_tpu.llm import native_vlm
+    from bbocr_tpu.models.vlm import EOS_ID, PageReader, decode_ids, greedy_generate
+    from bbocr_tpu.utils.checkpoint import load_params
+
+    os.chdir(ROOT)  # the JAX client resolves checkpoints/vlm.npz from the working directory
+    model = PageReader(dtype=getattr(jnp, dtype))
+    params = jax.tree_util.tree_map(jnp.asarray, load_params(native_vlm.DEFAULT_CKPT))
+    forced = jax.jit(lambda p, page, ids: model.apply(p, page, ids))
+    pages, logits = [], {}
+    for i, rel in enumerate(vlm_pages()):
+        with open(os.path.join(ROOT, rel), "rb") as f:
+            page = native_vlm.NativeVLMClient._page_from_b64(base64.b64encode(f.read()).decode())
+        batch = jnp.asarray(page)[None, ..., None]
+        t0 = time.perf_counter()
+        ids = np.asarray(greedy_generate(params, model, batch))[0]
+        seconds = time.perf_counter() - t0
+        eos = np.flatnonzero(ids == EOS_ID)
+        steps = int(eos[0]) if eos.size else len(ids) - 1  # decisions up to the first EOS
+        lg = np.asarray(forced(params, batch, jnp.asarray(ids)[None]))[0, :steps]
+        logits[f"page{i}"] = lg.astype(np.float32)
+        fixed = bool((lg.argmax(-1) == ids[1 : steps + 1]).all())
+        pages.append({"page": rel, "ids": ids.tolist(), "steps": steps, "text": decode_ids(ids),
+                      "forced_argmax_equal": fixed})
+        print(f"{rel}: {seconds:.1f} s, {steps} steps, forced pass reproduces the ids: {fixed}, {decode_ids(ids)!r}")
+    report = jax_vlm_eval.eval_real(model, params, os.path.join(ROOT, "data", "real"))
+    print(json.dumps({"real": {k: v for k, v in report.items() if k != "rows"}}))
+    out = {"dtype": dtype, "flax": flax.__version__, "jax": jax.__version__, "ckpt": native_vlm.DEFAULT_CKPT,
+           "pages": pages, "eval_real": report}
+    if dtype != "float32":
+        return out, logits
+
+    client = native_vlm.get_native_client()
+    client._model = PageReader(dtype=jnp.float32)
+    runs = {}
+    for name, canvas, books in (("route", None, VLM_ROUTE_BOOKS), ("route_416x320", VLM_SMALL_CANVAS, ["1"])):
+        jax_extractor._ENGINE_CACHE.clear()
+        try:
+            with _jax_config(_default_config("float32", canvas)):
+                ext = jax_extractor.BookMetadataExtractor(llm_backend="tpu", warm_model=False)
+                runs[name] = {"canvas": canvas, "books": books, "runs": {}}
+                for book in books:
+                    meta = ext.process_book_directory(os.path.join(ROOT, "books", book))
+                    runs[name]["runs"][book] = _vlm_route_meta(meta)
+                    print(f"{name} book {book}: {json.dumps({k: v for k, v in meta.items() if not k.startswith('_')})}")
+                if canvas:
+                    bench = jax_vlm_bench.bench_backend("tpu", "", os.path.join(ROOT, "books"), 2)
+                    for row in bench["details"]:
+                        row.pop("seconds")
+                    bench.pop("mean_seconds")
+                    runs["bench"] = bench
+        finally:
+            engine = jax_extractor._ENGINE_CACHE.pop("engine", None)
+            if engine is not None and hasattr(engine, "close"):
+                engine.close()
+    return {**out, **runs}, logits
+
+
+# ---------------------------------------------------------------------------
 # The scanner service and pricing: a stdlib HTTP client, the service runner,
 # canned pricing clients, synthetic AbeBooks pages (importable without JAX:
 # ``chip_smoke.py`` phase 12 and the tests drive the port's service with them)
@@ -1366,6 +1490,7 @@ def main() -> None:
     mode.add_argument("--llm-route", action="store_true")
     mode.add_argument("--server-route", action="store_true")
     mode.add_argument("--pricing", action="store_true")
+    mode.add_argument("--vlm", action="store_true")
     p.add_argument("--canvas", default=None,
                    help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options, "
                         "--evaluate-real, --evaluate-books, --server-route)")
@@ -1413,6 +1538,13 @@ def main() -> None:
     elif args.pricing:
         out = pricing_reference()
         out_path = args.out or os.path.join(data, "pricing_jax.json")
+    elif args.vlm:
+        import numpy as np
+
+        out, logits = vlm_reference(args.dtype)
+        out_path = args.out or os.path.join(data, f"vlm_jax_{suffix}.json")
+        out["logits_file"] = os.path.basename(out_path)[: -len(".json")] + "_logits.npz"
+        np.savez_compressed(os.path.join(os.path.dirname(out_path), out["logits_file"]), **logits)
     elif args.covers:
         out = covers_without_route()
         out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")

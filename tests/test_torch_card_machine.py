@@ -22,7 +22,10 @@ fifth serves the scanner service on the CPU (``httpx``, ``bs4``,
 ``books/1`` (heuristic and ollama through a session passed in), the review
 and pricing requests and the pricing CLI through canned HTTP clients;
 without a session and without ``httpx`` it answers as the JAX service does
-without ``requests`` and ``httpx``.
+without ``requests`` and ``httpx``. A sixth runs the PageReader: the
+extractor's ``tpu`` route without a session (the client reads the shipped
+checkpoint the service names, in bfloat16) and ``vlm_eval --real`` on one
+cover.
 """
 
 import json
@@ -311,6 +314,34 @@ SERVICE_SCRIPT = BLOCKER + textwrap.dedent(
     """
 )
 
+VLM_SCRIPT = BLOCKER + textwrap.dedent(
+    """
+    import os
+    import shutil
+    import sys
+
+    import torch
+
+    torch.set_num_threads(2)
+    from bbocr_tpu_torch.cli import vlm_eval
+    from bbocr_tpu_torch.extract import BookMetadataExtractor
+    from bbocr_tpu_torch.llm import NativeVLMClient, create_llm_client
+
+    tmp = sys.argv[1]
+    ext = BookMetadataExtractor(llm_backend="tpu", model="checkpoints/vlm.npz", device="cpu")
+    meta = ext.extract_metadata_from_images(["books/1/IMG_0000.jpg"], ocr_image_indices=[])
+    client = create_llm_client("tpu", device="cpu")
+    os.makedirs(os.path.join(tmp, "covers"))
+    shutil.copy("data/real/covers/book2.png", os.path.join(tmp, "covers"))
+    with open(os.path.join(tmp, "ground_truth.json"), "w") as f:
+        json.dump({"books": {"covers/book2": {"title": "1984", "authors": ["George Orwell"]}}}, f)
+    report = vlm_eval.main(["--real", "--real-dir", tmp, "--device", "cpu"])
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+    print(json.dumps({"loaded": loaded, "meta": meta, "client": type(client).__name__,
+                      "dtype": str(client._model.dtype), "path": client._loaded[0], "real": report["real"]}))
+    """
+)
+
 
 def _run_blocked(script, *args):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BB_OCR_BATCHING")}
@@ -422,3 +453,16 @@ def test_service_and_pricing_run_without_http_libraries_or_bs4(tmp_path):
     assert out["bare_models"] == 500
     assert set(out["bare_errors"]) == {"google_books", "abebooks"}
     assert all("httpx" in e for e in out["bare_errors"].values())
+
+
+def test_pagereader_runs_without_jax_flax_pillow_or_requests(tmp_path):
+    """The extractor's ``tpu`` route with no session and no OCR'd photo, on
+    a ``books/`` JPEG (the default bfloat16 client on the CPU, the
+    checkpoint named as the service's UI names it), then ``vlm_eval
+    --real`` on one cover."""
+    out = _run_blocked(VLM_SCRIPT, str(tmp_path))
+    assert out["loaded"] == []
+    assert out["client"] == "NativeVLMClient" and out["dtype"] == "torch.bfloat16"
+    assert out["path"] == "checkpoints/vlm.npz"
+    assert out["meta"]["_processing_info"]["llm_backend"] == "tpu" and "title" in out["meta"]
+    assert out["real"]["books"] == 1 and out["real"]["rows"][0]["book"] == "covers/book2"

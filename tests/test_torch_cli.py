@@ -165,12 +165,34 @@ def test_process_book_ollama_matches_jax(stub_engines, tmp_path, monkeypatch):
     assert got == ref and got["book_1_enhanced.json"]["title"] == "The Silent River"
 
 
-def test_process_book_pagereader_fails_naming_its_item(stub_engines, tmp_path, capsys):
+def test_process_book_pagereader_fails_naming_its_item(stub_engines, tmp_path, monkeypatch):
+    """``--llm-backend tpu`` is ported and no longer fails: both CLIs read
+    the book's first photo with their PageReader (each cached client's
+    model a float32 one, set through ``client._model``) and save the same
+    JSON."""
+    import jax.numpy as jnp
+
+    from bbocr_tpu.llm import native_vlm as jax_native
+    from bbocr_tpu.models.vlm import PageReader as JaxPageReader
+    from bbocr_tpu_torch.llm import native_vlm
+    from bbocr_tpu_torch.models.vlm import PageReader
+
     books = _books(tmp_path, ("1",))
-    with pytest.raises(SystemExit):
-        process_book.main(["--book-dir", os.path.join(books, "1"), "--llm-backend", "tpu", "--device", "cpu",
-                           "--no-preprocessing", "--output-dir", str(tmp_path / "out")])
-    assert "Queue 1 item 15" in capsys.readouterr().err
+    monkeypatch.chdir(ROOT)  # both clients resolve checkpoints/vlm.npz from the working directory
+    monkeypatch.delenv("BB_OCR_VLM_CKPT", raising=False)
+    monkeypatch.setattr(jax_native, "_CLIENT_CACHE", {})
+    monkeypatch.setattr(native_vlm, "_CLIENT_CACHE", {})
+    jax_native.get_native_client()._model = JaxPageReader(dtype=jnp.float32)
+    native_vlm.get_native_client(device="cpu")._model = PageReader(dtype=torch.float32)
+    for name, module in (("jax", jax_process_book), ("port", process_book)):
+        argv = ["process_book", "--book-dir", os.path.join(books, "1"), "--output-dir", str(tmp_path / name),
+                "--no-preprocessing", "--llm-backend", "tpu", "--no-warm-model"]
+        if module is process_book:
+            argv += ["--device", "cpu"]
+        monkeypatch.setattr(sys, "argv", argv)
+        module.main()
+    got, ref = _saved(str(tmp_path / "port")), _saved(str(tmp_path / "jax"))
+    assert got == ref and got["book_1_enhanced.json"]["_processing_info"]["llm_backend"] == "tpu"
 
 
 def test_compare_ocr_matches_jax(stub_engines, tmp_path, monkeypatch):

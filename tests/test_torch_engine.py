@@ -203,17 +203,27 @@ def test_extractor_makes_valid_json(engines, tmp_path):
     ],
     ids=["llm"],
 )
-def test_extractor_refuses_unported_knobs(kwargs):
-    """Every LLM backend but the on-chip PageReader is ported: the extractor
-    constructs with the others, and the PageReader (``"tpu"``) raises
-    naming its ROADMAP.md item when the route reaches the model."""
+def test_extractor_refuses_unported_knobs(kwargs, monkeypatch):
+    """Every LLM backend is ported: the extractor constructs with each, and
+    the PageReader (``"tpu"``) route reaches the port's cached client on
+    the extractor's device with the first photo's JPEG, without touching
+    the HTTP session (the model itself: ``tests/test_torch_vlm.py``)."""
+    from bbocr_tpu_torch.llm import native_vlm
+
     base = dict(llm_backend="heuristic", auto_rotate=False, reread_low_conf=False, isbn_reread=False, fast_single=False)
     base.update(kwargs)
     assert BookMetadataExtractor(**base, warm_model=False).llm_backend == kwargs["llm_backend"]
+    calls = []
+    monkeypatch.setattr(native_vlm, "_CLIENT_CACHE", {})
+    monkeypatch.setattr(native_vlm.NativeVLMClient, "generate",
+                        lambda self, model, prompt, images_b64, timeout_seconds=300.0:
+                        calls.append((self.device, model, len(images_b64))) or '{"title": "Red Men"}')
     pagereader = BookMetadataExtractor(**{**base, "llm_backend": "tpu"}, session=object(), device="cpu")
+    pagereader._session = None  # the route must not ask for one
     image = np.zeros((16, 16, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        pagereader.extract_metadata_from_images([image], ocr_image_indices=[])
+    meta = pagereader.extract_metadata_from_images([image], ocr_image_indices=[])
+    assert calls == [(torch.device("cpu"), "gemma3:4b", 1)] and meta["title"] == "Red Men"
+    assert pagereader._session is None
 
 
 class _ShapeEngine:

@@ -22,6 +22,7 @@ from bbocr_tpu.decode.boxes import extract_boxes as jax_extract_boxes
 from bbocr_tpu.utils import cer as jax_cer
 from bbocr_tpu_torch.cli import ab_summary, evaluate, evaluate_real, restructure
 from bbocr_tpu_torch.decode import DetectionParams, extract_boxes
+from bbocr_tpu_torch.io import load_gray
 from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
 from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
 from bbocr_tpu_torch.utils import cer
@@ -127,7 +128,7 @@ def test_gray_loader_is_pillow_convert_l():
             path = os.path.join(REAL, *key.split("/"), name)
             if not os.path.isfile(path):
                 path = os.path.join(REAL, os.path.dirname(key), name)
-            got = evaluate_real._load_gray(path)
+            got = load_gray(path)
             with Image.open(path) as img:
                 want = np.asarray(img.convert("L"), np.float32)
             assert got.dtype == want.dtype

@@ -125,9 +125,20 @@ def test_usage_and_costs_match_jax():
     assert port_client.GeminiClient.QUOTA_FALLBACKS == jax_client.GeminiClient.QUOTA_FALLBACKS
 
 
-def test_factory_names_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        port_client.create_llm_client("pagereader", session=FakeSession([]))
+def test_factory_names_what_is_not_ported(monkeypatch):
+    """Every JAX backend is ported: ``tpu``, ``native`` and ``pagereader``
+    give the PageReader's cached client in both packages (nothing is loaded
+    until a page comes); an unknown backend raises JAX's ``ValueError``."""
+    from bbocr_tpu.llm import native_vlm as jax_native
+    from bbocr_tpu_torch.llm import native_vlm
+
+    monkeypatch.setattr(jax_native, "_CLIENT_CACHE", {})
+    monkeypatch.setattr(native_vlm, "_CLIENT_CACHE", {})
+    for name in ("tpu", "native", "pagereader"):
+        ref = jax_client.create_llm_client(name)
+        got = port_client.create_llm_client(name, session=FakeSession([]), device="cpu")
+        assert isinstance(ref, jax_native.NativeVLMClient) and isinstance(got, native_vlm.NativeVLMClient)
+        assert got is port_client.create_llm_client("tpu", device="cpu") and got.ckpt_path == ref.ckpt_path
     with pytest.raises(ValueError) as ref:
         jax_client.create_llm_client("claude", session=FakeSession([]))
     with pytest.raises(ValueError) as got:
