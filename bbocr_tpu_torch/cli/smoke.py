@@ -7,7 +7,7 @@ output JSON lands with the expected contract. Exit code 0 = healthy.
     python -m bbocr_tpu_torch.cli.smoke --books-dir books --device cpu
 
 Without ``--books-dir`` the JAX runner renders a synthetic book with
-``cli/make_examples.py``, which is not ported (ROADMAP.md Queue 1 item 14).
+``cli/make_examples.py``, which is not ported (ROADMAP.md Queue 1 item 14b).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def main(argv=None) -> int:
     books_dir = args.books_dir
     if books_dir is None:
         raise NotImplementedError(
-            "rendering a synthetic book (cli/make_examples.py) is not ported yet: see ROADMAP.md Queue 1 item 14; "
+            "rendering a synthetic book (cli/make_examples.py) is not ported yet: see ROADMAP.md Queue 1 item 14b; "
             "pass --books-dir"
         )
     workdir = tempfile.mkdtemp(prefix="bbocr_smoke_")

@@ -8,13 +8,13 @@ Counterpart of ``bbocr_tpu/cli/vlm_eval.py``:
    aspect-keeping BILINEAR resize, a white letterbox) and scored with the
    fuzzy methodology of ``cli/evaluate``;
 2. ``--synthetic``: exact-JSON rate and per-field accuracy on held-out
-   synthetic title pages. It needs the synthetic page generator
-   (``train/synth.py``), which is not ported (ROADMAP.md Queue 1 item 14),
-   and raises ``NotImplementedError`` when asked for.
+   synthetic title pages of the port's generator (``train/synth.py``),
+   which draws with Pillow: it runs where Pillow is installed, and raises
+   ``ImportError`` naming Pillow where it is not (the card's machine).
 
 The JAX CLI runs both when neither flag is given; this one then runs
-``--real`` only. The model computes in bfloat16, the client's type, on
-``--device`` (default ``cuda``).
+``--real`` only, which needs no Pillow. The model computes in bfloat16, the
+client's type, on ``--device`` (default ``cuda``).
 
     python -m bbocr_tpu_torch.cli.vlm_eval --real [--ckpt checkpoints/vlm.npz] [--device cpu]
 """
@@ -57,10 +57,35 @@ def _parse(s: str) -> Dict[str, Any]:
 
 
 def eval_synthetic(model, n: int, batch: int, h: int, w: int) -> Dict[str, Any]:
-    raise NotImplementedError(
-        "vlm_eval --synthetic needs the synthetic page generator (train/synth.py), which is not ported yet: "
-        "see ROADMAP.md Queue 1 item 14"
-    )
+    """Exact-JSON rate, valid-JSON rate and field accuracy on ``n`` held-out
+    synthetic title pages (``train/synth.py``, seed 777_777, drawn with
+    Pillow)."""
+    from bbocr_tpu_torch.train.synth import PageGenerator, SynthConfig
+
+    gen = PageGenerator(SynthConfig(), seed=777_777)  # held out from training
+    exact = valid = 0
+    field_hits = field_total = 0
+    for start in range(0, n, batch):
+        b = min(batch, n - start)
+        pages = np.zeros((b, h, w), np.float32)
+        refs: List[str] = []
+        for i in range(b):
+            pages[i], js, _ = gen.render_labeled(h, w)
+            refs.append(js)
+        hyps = _generate(model, pages)
+        for ref, hyp in zip(refs, hyps):
+            exact += hyp == ref
+            fr, fh = _parse(ref), _parse(hyp)
+            valid += bool(fh)
+            for k, v in fr.items():
+                field_total += 1
+                field_hits += fh.get(k) == v
+    return {
+        "n": n,
+        "exact_json": round(exact / n, 3),
+        "valid_json": round(valid / n, 3),
+        "field_acc": round(field_hits / max(field_total, 1), 3),
+    }
 
 
 def eval_real(model, real_dir: str) -> Dict[str, Any]:

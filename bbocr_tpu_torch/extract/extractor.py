@@ -623,19 +623,19 @@ def _shared_engine(device="cuda"):
     """The process-wide engine of ``device``: ``OCREngine.from_checkpoint``
     on ``craft.npz`` and ``crnn.npz`` of ``BB_OCR_CKPT_DIR`` (default the
     repository's ``checkpoints/``), wrapped in ``BatchingOCR`` unless
-    ``BB_OCR_BATCHING`` is false. Raises if a checkpoint is missing (the
-    JAX package then initialises untrained weights, which the port does not
-    port)."""
+    ``BB_OCR_BATCHING`` is false. When either checkpoint is missing it
+    falls back to ``OCREngine.create()``, untrained weights, as the JAX
+    package does."""
     key = str(torch.device(device))
     if key not in _ENGINE_CACHE:
         from bbocr_tpu_torch.runtime import OCREngine
 
         ckpt_dir = os.getenv("BB_OCR_CKPT_DIR", _CKPT_DIR)
         paths = [os.path.join(ckpt_dir, name) for name in ("craft.npz", "crnn.npz")]
-        missing = [p for p in paths if not os.path.exists(p)]
-        if missing:
-            raise FileNotFoundError(f"OCR checkpoints not found: {missing} (set BB_OCR_CKPT_DIR)")
-        engine = OCREngine.from_checkpoint(*paths, device=device)
+        if all(os.path.exists(p) for p in paths):
+            engine = OCREngine.from_checkpoint(*paths, device=device)
+        else:
+            engine = OCREngine.create(device=device)
         if env_flag("BB_OCR_BATCHING", default=True):
             # coalesce concurrent requests into one device batch
             from bbocr_tpu_torch.runtime.batching import BatchingOCR

@@ -175,3 +175,145 @@ def pagereader_state_dict(params: Any) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected PageReader parameter {key}")
     return _to_tensors(sd)
+
+
+# ---------------------------------------------------------------------------
+# The inverse bridge: torch state dicts -> flax parameter trees
+# ---------------------------------------------------------------------------
+
+
+def _flax_leaf(suffix: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A torch leaf (``weight`` or ``bias``) of a conv, ``Linear`` or
+    normalisation -> the flax leaf name and value (the inverse of ``_layer``)."""
+    if suffix == "weight" and value.ndim == 4:
+        return "kernel", value.transpose(2, 3, 1, 0)
+    if suffix == "weight" and value.ndim == 2:
+        return "kernel", value.T
+    if suffix == "weight":
+        return "scale", value
+    if suffix == "bias":
+        return "bias", value
+    raise KeyError(f"unexpected torch leaf {suffix!r}")
+
+
+def _numpy(sd: Dict[str, Any]) -> Iterator[Tuple[str, np.ndarray]]:
+    for key, value in sd.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().float().numpy()
+        yield key, np.ascontiguousarray(np.asarray(value, np.float32))
+
+
+def _put(tree: Dict[str, Any], path: str, value: np.ndarray) -> None:
+    parts = path.split("/")
+    node = tree
+    for p in parts[:-1]:
+        node = node.setdefault(p, {})
+    node[parts[-1]] = np.ascontiguousarray(value)
+
+
+def craft_params(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A ``CRAFT`` or ``CRAFTLite`` state dict (RGB stem) -> its flax tree
+    ``{"params": ...}``: the inverse of ``craft_state_dict``."""
+    lite = "backbone.stem.weight" in sd
+    backbone = "LiteBackbone_0" if lite else "VGG16BN_0"
+    tree: Dict[str, Any] = {}
+    for key, value in _numpy(sd):
+        parts = key.split(".")
+        if parts[-2] in ("conv", "norm"):
+            layer = "Conv_0" if parts[-2] == "conv" else "GroupNorm_0"
+            owner = parts[:-2]
+        else:
+            layer, owner = None, parts[:-1]
+        if owner[0] == "backbone" and owner[1] == "convs":
+            path = f"{backbone}/ConvBN_{owner[2]}/{layer}"
+        elif owner == ["backbone", "stem"]:
+            path = f"{backbone}/Conv_0"
+        elif owner == ["backbone", "stem_norm"]:
+            path = f"{backbone}/GroupNorm_0"
+        elif owner[0] == "decoder":
+            path = f"DoubleConv_{owner[1]}/ConvBN_{owner[2]}/{layer}"
+        elif owner[0] == "head":
+            path = f"ConvBN_{owner[1]}/{layer}"
+        elif owner == ["out"]:
+            path = "Conv_0"
+        else:
+            raise KeyError(f"unexpected CRAFT state dict key {key}")
+        leaf, v = _flax_leaf(parts[-1], value)
+        _put(tree, f"{path}/{leaf}", v)
+    return {"params": tree}
+
+
+def crnn_params(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """A ``CRNN(norm="group")`` state dict -> its flax tree
+    ``{"params": ...}``: the inverse of ``crnn_state_dict``."""
+    tree: Dict[str, Any] = {}
+    for key, value in _numpy(sd):
+        parts = key.split(".")
+        if parts[0] == "features" and parts[1] == "convs":
+            leaf, v = _flax_leaf(parts[3], value)
+            _put(tree, f"VGGFeatures_0/Conv_{parts[2]}/{leaf}", v)
+        elif parts[0] == "features" and parts[1] == "norms":
+            leaf, v = _flax_leaf(parts[3], value)
+            _put(tree, f"VGGFeatures_0/GroupNorm_{parts[2]}/{leaf}", v)
+        elif re.fullmatch(r"rnn\d", parts[0]) and parts[1] in ("fwd", "bwd"):
+            _put(tree, "/".join(parts), value)
+        elif re.fullmatch(r"rnn\d", parts[0]) and parts[1] == "proj":
+            leaf, v = _flax_leaf(parts[2], value)
+            _put(tree, f"{parts[0]}/proj/{leaf}", v)
+        elif parts[0] == "head":
+            leaf, v = _flax_leaf(parts[1], value)
+            _put(tree, f"head/{leaf}", v)
+        else:
+            raise KeyError(f"unexpected CRNN state dict key {key}")
+    return {"params": tree}
+
+
+def _block_params(tree: Dict[str, Any], prefix: str, parts: list, value: np.ndarray, heads: int) -> None:
+    """The inverse of ``_pagereader_block`` for one leaf under ``prefix``."""
+    if parts[0] == "norms":
+        leaf, v = _flax_leaf(parts[2], value)
+        _put(tree, f"{prefix}/LayerNorm_{parts[1]}/{leaf}", v)
+    elif parts[0] == "attns" and parts[2] in _ATTN_PARTS:
+        path = f"{prefix}/MultiHeadDotProductAttention_{parts[1]}/{parts[2]}"
+        d = value.shape[0]
+        if parts[3] == "weight" and parts[2] == "out":
+            _put(tree, f"{path}/kernel", value.T.reshape(heads, d // heads, d))
+        elif parts[3] == "weight":
+            _put(tree, f"{path}/kernel", value.T.reshape(d, heads, d // heads))
+        elif parts[2] == "out":
+            _put(tree, f"{path}/bias", value)
+        else:
+            _put(tree, f"{path}/bias", value.reshape(heads, d // heads))
+    elif parts[0] in ("fc1", "fc2"):
+        leaf, v = _flax_leaf(parts[1], value)
+        _put(tree, f"{prefix}/Dense_{int(parts[0][2]) - 1}/{leaf}", v)
+    else:
+        raise KeyError(f"unexpected PageReader block key {prefix}.{'.'.join(parts)}")
+
+
+def pagereader_params(sd: Dict[str, Any], heads: int = 6, patch: int = 8) -> Dict[str, Any]:
+    """A ``models.vlm.PageReader`` state dict -> its flax tree
+    ``{"params": ...}``: the inverse of ``pagereader_state_dict``. ``heads``
+    and ``patch`` are the model's (the state dict does not hold them)."""
+    tree: Dict[str, Any] = {}
+    for key, value in _numpy(sd):
+        parts = key.split(".")
+        if parts[0] == "encoder" and parts[1] == "conv" and parts[2] == "weight":
+            _put(tree, "encoder/Conv_0/kernel", value.T.reshape(patch, patch, 1, -1))
+        elif parts[0] == "encoder" and parts[1] == "conv":
+            _put(tree, "encoder/Conv_0/bias", value)
+        elif parts[0] == "encoder" and parts[1] == "norm":
+            leaf, v = _flax_leaf(parts[2], value)
+            _put(tree, f"encoder/LayerNorm_0/{leaf}", v)
+        elif parts[0] == "encoder" and parts[1] == "blocks":
+            _block_params(tree, f"encoder/Block_{parts[2]}", parts[3:], value, heads)
+        elif parts[0] == "blocks":
+            _block_params(tree, f"blocks_{parts[1]}", parts[2:], value, heads)
+        elif parts[0] in ("tok_embed", "pos_embed"):
+            _put(tree, f"{parts[0]}/embedding", value)
+        elif parts[0] in ("out_norm", "head", "ctc_head"):
+            leaf, v = _flax_leaf(parts[1], value)
+            _put(tree, f"{parts[0]}/{leaf}", v)
+        else:
+            raise KeyError(f"unexpected PageReader state dict key {key}")
+    return {"params": tree}

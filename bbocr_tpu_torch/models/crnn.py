@@ -88,8 +88,9 @@ class LSTMScan(nn.Module):
 
 
 def _sigmoid(v: torch.Tensor) -> torch.Tensor:
-    # 1 / (1 + exp(-v)), each op rounded to v's type, as XLA expands it
-    return torch.reciprocal(torch.exp(torch.neg(v)).add_(1.0))
+    # 1 / (1 + exp(-v)), each op rounded to v's type, as XLA expands it; not
+    # in place: autograd keeps exp's output for the backward pass
+    return torch.reciprocal(torch.exp(torch.neg(v)) + 1.0)
 
 
 def bidirectional_scan(x: torch.Tensor, fwd: LSTMScan, bwd: LSTMScan) -> torch.Tensor:

@@ -179,6 +179,21 @@ class OCREngine:
         self.timers = StageTimer()
 
     @classmethod
+    def create(
+        cls, seed: int = 0, config: EngineConfig = None, charset: Charset = EN_CHARSET,
+        mesh: Any = None, device="cuda",
+    ):
+        """Engine with freshly initialised (untrained) parameters: flax's
+        initialisers drawn from a ``torch.Generator`` seeded with ``seed``
+        (``models/init.py``; the values are not ``jax.random``'s)."""
+        if mesh is not None:
+            raise NotImplementedError("a mesh-sharded engine is not ported: see ROADMAP.md Queue 1 item 13")
+        from bbocr_tpu_torch.models.init import init_engine_params
+
+        craft_params, crnn_params = init_engine_params(seed, charset.num_classes)
+        return cls(craft_params, crnn_params, config, charset, device=device)
+
+    @classmethod
     def from_checkpoint(
         cls, craft_path: str, crnn_path: str, config: EngineConfig = None,
         charset: Charset = None, device="cuda",

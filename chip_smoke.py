@@ -187,6 +187,25 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    book timed with the default bfloat16 model; (e) the encoder's ms, the
    decode's first and warm seconds, and one warm decode's host ms, device
    ms and kernels from torch.profiler.
+14. training (``train/``, ``cli/train.py``; no kernel lies on this path, and
+   launch counts over 14a and 14b are printed and must stay 0): (a) the
+   three step makers (CRNN, CRAFT, the PageReader with its CTC auxiliary
+   loss at weight 0.5) in float32 with TF32 off at full width from the
+   shipped checkpoints on the batches the JAX generators recorded
+   (``tests/data/train_batches.npz``), three steps each, held to the JAX
+   package's float32 CPU run (``tests/data/train_jax_f32.json``, ``.npz``):
+   losses and the step-1 gradient norm within 1e-4 relative, 128 recorded
+   elements per parameter leaf within 1e-4 after step 3 but where a step-1
+   gradient is below 1e-6 or the two step-1 gradients differ in sign
+   (Adam's first move takes its sign from rounding there; both counted);
+   (b) the same in bfloat16, each loss finite and within 0.02 of the JAX
+   package's bfloat16 CPU run (``train_jax_bf16.json``); (d) one bfloat16
+   step of each: seconds, host ms, device ms and kernels (torch.profiler),
+   peak memory, crops or pages per second; (c) the CLI's recognizer loop on
+   the recorded batch: 2 steps with ``--state-dir``, a resume to step 4, the
+   saved ``crnn.npz`` read by ``OCREngine.from_checkpoint`` through the
+   extractor on ``book1.png`` (each kernel launched), and
+   ``OCREngine.create()`` reading the same photo.
 
 Phases 4 to 7 run the engine of the first slices (device warps from the
 canvas, greedy decode), as their references were recorded; phases 8 and 9
@@ -2399,6 +2418,239 @@ def time_vlm(dev, card, f32_seconds, bf16_seconds) -> None:
           f"{100 * (1 - device / (host * 1e3)):.1f} %); {card}", flush=True)
 
 
+# One recorded batch per component from the JAX generators, and the JAX
+# package's three steps of each step maker on them from the shipped
+# checkpoints, float32 and bfloat16 (scripts/torch_port_reference.py --train)
+TRAIN_BATCHES = os.path.join(ROOT, "tests", "data", "train_batches.npz")
+TRAIN_REFERENCE = {dt: os.path.join(ROOT, "tests", "data", f"train_jax_{dt}.json") for dt in ("f32", "bf16")}
+TRAIN_REL = 1e-4  # losses and the step-1 gradient norm, relative
+TRAIN_ABS = 1e-4  # parameters after step 3, absolute
+SMALL_GRAD = 1e-6  # below it, Adam's first update takes its sign from rounding
+TRAIN_BF16_REL = 0.02  # bfloat16 losses against the JAX package's bfloat16 CPU run, relative (the CPU: 0.0064)
+TRAIN_COMPONENTS = ("crnn", "craft", "vlm")
+
+
+def train_runs(dev, dtype) -> dict:
+    """name -> (model, float32 params on ``dev``, loss_fn, step maker's
+    step, batch) for the three recorded runs, in the compute ``dtype``."""
+    from bbocr_tpu_torch.models import CRAFT, CRNN, PageReader
+    from bbocr_tpu_torch.train import TrainConfig, make_optimizer
+    from bbocr_tpu_torch.train import trainer
+    from bbocr_tpu_torch.utils.checkpoint import load_params
+
+    with open(TRAIN_REFERENCE["f32"]) as f:
+        ref = json.load(f)
+    with np.load(TRAIN_BATCHES) as data:
+        b = {k: torch.from_numpy(data[k]).to(dev) for k in data.files}
+    cfg = TrainConfig(**ref["config"])
+    vlm_tree = load_params(VLM_CKPT)
+    vlm_tree["params"]["ctc_head"] = {"kernel": b["vlm_ctc_head_kernel"].cpu().numpy(),
+                                      "bias": b["vlm_ctc_head_bias"].cpu().numpy()}
+    crnn, craft, reader = CRNN(num_classes=97).to(dev), CRAFT().to(dev), PageReader(dtype=dtype).to(dev)
+    weight = ref["ctc_weight"]
+    runs = {
+        "crnn": (crnn, load_params(os.path.join(CKPT, "crnn.npz")),
+                 lambda p, *x: trainer.crnn_loss(crnn, p, *x, dtype=dtype),
+                 lambda tx: trainer.make_crnn_train_step(crnn, tx, dtype=dtype),
+                 ("crnn_crops", "crnn_labels", "crnn_label_lens", "crnn_frame_lens")),
+        "craft": (craft, load_params(os.path.join(CKPT, "craft.npz")),
+                  lambda p, *x: trainer.craft_loss(craft, p, *x, dtype=dtype),
+                  lambda tx: trainer.make_craft_train_step(craft, tx, dtype=dtype),
+                  ("craft_pages", "craft_maps")),
+        "vlm": (reader, vlm_tree,
+                lambda p, pages, tokens, lens, chars, char_lens: trainer.vlm_loss(reader, p, pages, tokens, lens)
+                + weight * trainer.vlm_ctc_aux_loss(reader, p, pages, chars, char_lens),
+                lambda tx: trainer.make_vlm_train_step(reader, tx, ctc_weight=weight),
+                ("vlm_pages", "vlm_tokens", "vlm_tok_lens", "vlm_char_labels", "vlm_char_lens")),
+    }
+    out = {}
+    for name, (model, tree, loss_fn, make_step, keys) in runs.items():
+        tx = make_optimizer(cfg)
+        batch = tuple(b[k] for k in keys)
+        out[name] = (model, trainer.to_params(model, tree, dev), tx, make_step(tx), loss_fn, batch)
+    return out
+
+
+def run_train(model, params, tx, step, loss_fn, batch, steps: int):
+    """(losses, step-1 gradient norm, step-1 gradients, params after the
+    steps, seconds per step) of ``steps`` steps from ``params``."""
+    from bbocr_tpu_torch.train.optim import global_norm
+    from bbocr_tpu_torch.train.trainer import value_and_grad
+
+    opt_state = tx.init(params)
+    _, _, grads = value_and_grad(lambda p: loss_fn(p, *batch), params)
+    norm = float(global_norm(grads))
+    losses, seconds = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, *batch)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - t0)
+    return losses, norm, grads, params, seconds
+
+
+def check_train_float32(dev, card) -> dict:
+    """14(a): the three step makers in float32 (TF32 off) at full width on
+    the recorded batches, held to the JAX package's float32 CPU run: each
+    loss and the step-1 gradient norm within ``TRAIN_REL`` relative, the
+    recorded elements of every parameter after step 3 within ``TRAIN_ABS``
+    except where Adam's first update takes its sign from rounding: where a
+    step-1 gradient (the card's or JAX's) is below ``SMALL_GRAD`` in
+    magnitude, or where the two have opposite signs (the step-1 rate is 0,
+    so step 2 sees the same gradient and moves each element by about the
+    rate in its sign; both kinds counted and printed). Per leaf, the sum's
+    difference is printed. Returns seconds per step by component."""
+    from bbocr_tpu_torch.train.trainer import to_tree
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with open(TRAIN_REFERENCE["f32"]) as f:
+        ref = json.load(f)
+    samples = np.load(os.path.join(ROOT, "tests", "data", ref["samples_file"]))
+    problems, seconds = [], {}
+    for name, (model, params, tx, step, loss_fn, batch) in train_runs(dev, torch.float32).items():
+        want = ref["components"][name]
+        losses, norm, grads, after, secs = run_train(model, params, tx, step, loss_fn, batch, ref["steps"])
+        seconds[name] = secs
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+        norm_err = abs(norm - want["grad_norm_1"]) / want["grad_norm_1"]
+        got = dict(_tree_leaves(to_tree(model, after)))
+        got_g = dict(_tree_leaves(to_tree(model, grads)))
+        worst, exempt, flips, n, sum_err = 0.0, 0, 0, 0, 0.0
+        for path, leaf in want["leaves"].items():
+            idx = samples[f"{name}/{path}/idx"]
+            p_ref, g_ref = samples[f"{name}/{path}/params"], samples[f"{name}/{path}/grad1"]
+            p_got, g_got = got[path].ravel()[idx], got_g[path].ravel()[idx]
+            small = (np.abs(g_ref) < SMALL_GRAD) | (np.abs(g_got) < SMALL_GRAD)
+            flipped = ~small & (np.sign(g_ref) != np.sign(g_got))
+            exempt += int(small.sum())
+            flips += int(flipped.sum())
+            n += idx.size
+            keep = ~(small | flipped)
+            if keep.any():
+                worst = max(worst, float(np.abs(p_got - p_ref)[keep].max()))
+            sum_err = max(sum_err, abs(float(got[path].astype(np.float64).sum()) - leaf["sum"]) / leaf["size"])
+        print(f"14a {name}: losses {losses} (JAX {want['losses']}, worst relative {loss_err:.3g}); step-1 gradient "
+              f"norm {norm:.7g} (JAX {want['grad_norm_1']:.7g}, relative {norm_err:.3g}); parameters after step "
+              f"{ref['steps']}: {n} recorded elements, worst {worst:.3g} where both step-1 gradients reach "
+              f"{SMALL_GRAD:g} and agree in sign, {exempt} exempt below {SMALL_GRAD:g}, {flips} exempt with "
+              f"step-1 gradients of opposite signs; per-leaf sums differ by at most {sum_err:.3g} per element; "
+              f"seconds per step {[round(x, 3) for x in secs]}; {card}", flush=True)
+        if not (loss_err <= TRAIN_REL and norm_err <= TRAIN_REL and worst <= TRAIN_ABS):
+            problems.append(f"{name}: loss {loss_err:.3g}, gradient norm {norm_err:.3g}, parameters {worst:.3g}")
+    if problems:
+        fail(f"float32 training differs from the JAX package's: {problems}")
+    return seconds
+
+
+def _tree_leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _tree_leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, np.asarray(tree[k])
+
+
+def check_train_bfloat16(dev, card) -> dict:
+    """14(b): the same three runs computing in bfloat16 (the trainer's
+    default), printed beside the JAX package's bfloat16 CPU run; every loss
+    must be finite and within ``TRAIN_BF16_REL`` of JAX's. Returns the
+    runs for 14(d)."""
+    with open(TRAIN_REFERENCE["bf16"]) as f:
+        ref = json.load(f)
+    runs = train_runs(dev, torch.bfloat16)
+    problems = []
+    for name, (model, params, tx, step, loss_fn, batch) in runs.items():
+        want = ref["components"][name]
+        losses, norm, _, _, secs = run_train(model, params, tx, step, loss_fn, batch, ref["steps"])
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))
+        print(f"14b {name}: bfloat16 losses {losses} (JAX bfloat16 {want['losses']}, worst relative {err:.3g}); "
+              f"step-1 gradient norm {norm:.6g} (JAX {want['grad_norm_1']:.6g}); seconds per step "
+              f"{[round(x, 3) for x in secs]}; {card}", flush=True)
+        if not all(math.isfinite(x) for x in losses) or err > TRAIN_BF16_REL:
+            problems.append(f"{name}: {losses} against {want['losses']}")
+    if problems:
+        fail(f"bfloat16 training losses not finite or beyond {TRAIN_BF16_REL} of JAX's: {problems}")
+    return runs
+
+
+def check_train_cli(dev, card) -> None:
+    """14(c): ``cli/train.py``'s recognizer loop on the card on the recorded
+    batch (from ``checkpoints/crnn.npz``): 2 steps saving the state at step
+    2, then a resume to step 4; the saved ``crnn.npz`` loads in
+    ``OCREngine.from_checkpoint`` and reads ``book1.png`` through the
+    extractor, each kernel launched; ``OCREngine.create()`` reads a photo."""
+    import shutil
+    import tempfile
+
+    from bbocr_tpu_torch.cli import train as train_cli
+    from bbocr_tpu_torch.models.charset import EN_CHARSET
+
+    with np.load(TRAIN_BATCHES) as data:
+        batch = tuple(data[k] for k in ("crnn_crops", "crnn_labels", "crnn_label_lens", "crnn_frame_lens"))
+    refs = [EN_CHARSET.decode_ids(batch[1][i][: batch[2][i]]) for i in range(8)]
+    out = tempfile.mkdtemp(prefix="train_cli_")
+    try:
+        flags = ["--component", "crnn", "--batch", "32", "--width", "256", "--out", out, "--state-dir",
+                 os.path.join(out, "state"), "--save-every", "2", "--log-every", "2", "--device", str(dev),
+                 "--init-from", os.path.join(CKPT, "crnn.npz")]
+        first = train_cli.train_crnn(train_cli.build_parser().parse_args(flags + ["--steps", "2"]),
+                                     source=train_cli.Batches([batch]), val=(batch[0][:8], refs))
+        second = train_cli.train_crnn(train_cli.build_parser().parse_args(flags + ["--steps", "4"]),
+                                      source=train_cli.Batches([batch]), val=(batch[0][:8], refs))
+        saved = sorted(os.listdir(os.path.join(out, "state")))
+        print(f"14c: first run {first['log']}; resumed at step {second['start_step']}: {second['log']}; "
+              f"states {saved}; {card}", flush=True)
+        if second["start_step"] != 2 or [r["step"] for r in second["log"]] != [4] or "step_4" not in saved:
+            fail(f"the CLI loop did not resume from step 2 to step 4: {second}, states {saved}")
+        engine = OCREngine.from_checkpoint(os.path.join(CKPT, "craft.npz"), second["path"], device=dev)
+        extractor = BookMetadataExtractor(llm_backend="heuristic", engine=engine, device=dev)
+        kernels.reset_launches()
+        meta = extractor.extract_metadata_from_images([BOOK1], ocr_image_indices=[0])
+        torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+        print(f"14c: book1.png with the trained crnn.npz: {meta['_processing_info']['ocr_boxes']} boxes, "
+              f"title {meta.get('title')!r}; launches {launches}", flush=True)
+        if min(launches.values()) < 1 or meta["_processing_info"]["ocr_boxes"] < 1:
+            fail(f"the trained checkpoint's read of book1.png launched {launches} and found "
+                 f"{meta['_processing_info']['ocr_boxes']} boxes")
+        fresh = OCREngine.create(device=dev)
+        results = fresh.readtext(load_rgb(BOOK1))
+        torch.cuda.synchronize()
+        print(f"14c: OCREngine.create() read book1.png: {len(results)} boxes (untrained weights)", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def time_train(runs, card) -> None:
+    """14(d): one bfloat16 step of each component: seconds per step (median
+    of 3 after one warm step), host ms of one synchronised step, device ms
+    and kernels from torch.profiler, peak device memory over a step, and
+    crops or pages per second."""
+    for name, (model, params, tx, step, loss_fn, batch) in runs.items():
+        opt_state = tx.init(params)
+        call = functools.partial(step, params, opt_state, *batch)
+        call()
+        torch.cuda.synchronize()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        torch.cuda.reset_peak_memory_stats()
+        host, device, count = profile_call(call)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rows = batch[0].shape[0]
+        unit = "crops" if name == "crnn" else "pages"
+        median = statistics.median(secs)
+        print(f"14d {name}: bfloat16 step {median:.4f} s (median of {[round(x, 4) for x in secs]}), "
+              f"{rows / median:.1f} {unit}/s; one step {host:.1f} ms host, {device:.1f} ms device in {count} "
+              f"kernels (device idle {100 * (1 - device / host):.1f} %); peak memory {peak:.2f} GiB; {card}",
+              flush=True)
+
+
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
@@ -2529,13 +2781,27 @@ def main() -> int:
         report[name]["launches_pagereader_route"] = count
     phase("phase 13e: PageReader times")
     time_vlm(dev, card, f32_seconds, bf16_seconds)
+    phase("phase 14a: the step makers in float32 against the JAX package's recorded steps")
+    kernels.reset_launches()
+    check_train_float32(dev, card)
+    phase("phase 14b: the step makers in bfloat16")
+    runs = check_train_bfloat16(dev, card)
+    launches = {name: fn.launches for name, fn in kernels.KERNELS.items()}
+    print(f"14a/14b: kernel launches while training {launches} (the training path runs no preprocessing)", flush=True)
+    for name, count in launches.items():
+        report[name]["launches_training"] = count
+    phase("phase 14d: training times")
+    time_train(runs, card)
+    del runs
+    phase("phase 14c: the training CLI's loop on the card: save, resume, serve the checkpoint")
+    check_train_cli(dev, card)
     phase("end: the kernels' line and the result")
 
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed",
              "launches_default_route", "launches_shared_route", "launches_autocrop_route", "launches_evaluate_books",
-             "launches_llm_route", "launches_service", "launches_pagereader_route"]
+             "launches_llm_route", "launches_service", "launches_pagereader_route", "launches_training"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ references for the PyTorch port.
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --server-route [--canvas 416x320] [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --pricing [--out PATH]
     JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --vlm [--dtype float32|bfloat16] [--out PATH]
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference.py --train [--dtype float32|bfloat16] [--out PATH]
 
 Default mode: the photo goes through ``_chain_gray_pallas`` and then
 ``OCREngine.readtext`` in the given compute type with the configuration the
@@ -202,6 +203,22 @@ canvas (``route_416x320``), and ``vlm_bench --backend tpu --limit 2`` on
 that canvas (``bench``, seconds aside). To ``tests/data/vlm_jax_f32.json``
 (``_bf16``), with the flax and JAX versions; ``chip_smoke.py`` phase 13 and
 ``tests/test_torch_vlm.py`` read them.
+
+``--train``: three steps of each JAX step maker (``make_crnn_train_step``,
+``make_craft_train_step``, ``make_vlm_train_step`` with ``ctc_weight``
+0.5) in the chosen compute type, with ``schedule="cosine"``,
+``warmup_steps=1``, ``total_steps=10`` (the step-1 rate is 0), from the
+shipped ``crnn.npz``, ``craft.npz`` and ``vlm.npz`` (full width; the
+PageReader's ``ctc_head`` a fresh flax init), on one batch per component
+drawn by the JAX generators into ``tests/data/train_batches.npz`` (32
+crops at width 256, 4 pages at 256x192, 8 labeled pages at 256x192; drawn
+on the first run, read back after). It records each step's loss, the
+global gradient norm at the first step, and per leaf of the parameters
+after step 3 its size, sum and count of step-1 gradients below 1e-6; in
+float32 also 128 sampled elements per leaf (indices, values after step 3,
+step-1 gradients) in ``train_jax_f32.npz``. To
+``tests/data/train_jax_f32.json`` (``_bf16``); ``chip_smoke.py`` phase 14
+reads them.
 
 ``--jpeg-digests``: the SHA-256 of Pillow's RGB decoding of every JPEG in
 ``books/`` and ``data/real/photos/``, with its shape, to
@@ -1472,6 +1489,132 @@ def pricing_reference() -> dict:
             "requests": sorted(http.requests, key=json.dumps)}
 
 
+TRAIN_BATCHES = os.path.join(ROOT, "tests", "data", "train_batches.npz")
+TRAIN_CONFIG = {"schedule": "cosine", "warmup_steps": 1, "total_steps": 10}
+TRAIN_STEPS = 3
+TRAIN_CTC_WEIGHT = 0.5
+TRAIN_SAMPLES = 128  # recorded parameter elements per leaf
+
+
+def train_batches() -> dict:
+    """One batch per component from the JAX generators (drawn once, then
+    read back): 32 CRNN crops at width 256 (seed 11), 4 CRAFT pages at
+    256x192 with uint8 maps as the CLI quantises them (seed 12), 8
+    PageReader pages at 256x192 with JSON targets and CTC labels (seed 13),
+    and the PageReader's fresh ``ctc_head`` (``PageReader.init`` with
+    ``PRNGKey(0)``), which ``checkpoints/vlm.npz`` lacks."""
+    import numpy as np
+
+    if os.path.exists(TRAIN_BATCHES):
+        with np.load(TRAIN_BATCHES) as data:
+            return {k: data[k] for k in data.files}
+    import jax
+    import jax.numpy as jnp
+
+    from bbocr_tpu.models.vlm import PageReader
+    from bbocr_tpu.train.synth import PageGenerator, SynthConfig, TextLineGenerator
+
+    crops, labels, label_lens, frame_lens = TextLineGenerator(SynthConfig(), seed=11).batch(32, width=256)
+    pages, maps = PageGenerator(SynthConfig(), seed=12).batch(4, 256, 192)
+    vpages, tokens, tok_lens, char_labels, char_lens = PageGenerator(SynthConfig(), seed=13).batch_labeled(
+        8, 256, 192, target="json", with_ctc=True)
+    head = PageReader().init(jax.random.PRNGKey(0), jnp.zeros((1, 256, 192, 1)), jnp.zeros((1, 8), jnp.int32),
+                             with_ctc=True)["params"]["ctc_head"]
+    out = {
+        "crnn_crops": crops.astype(np.uint8), "crnn_labels": labels, "crnn_label_lens": label_lens,
+        "crnn_frame_lens": frame_lens,
+        "craft_pages": pages.astype(np.uint8), "craft_maps": np.round(maps * 255.0).astype(np.uint8),
+        "vlm_pages": vpages.astype(np.uint8), "vlm_tokens": tokens, "vlm_tok_lens": tok_lens,
+        "vlm_char_labels": char_labels, "vlm_char_lens": char_lens,
+        "vlm_ctc_head_kernel": np.asarray(head["kernel"]), "vlm_ctc_head_bias": np.asarray(head["bias"]),
+    }
+    np.savez_compressed(TRAIN_BATCHES, **out)
+    return out
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def train_reference(dtype: str) -> tuple:
+    """(the JSON record, the sampled parameters) of ``--train``: three steps
+    of each JAX step maker on ``train_batches()``, from the shipped
+    checkpoints, with ``TRAIN_CONFIG``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from bbocr_tpu.models import CRAFT, CRNN
+    from bbocr_tpu.models.vlm import PageReader
+    from bbocr_tpu.train import trainer
+    from bbocr_tpu.utils.checkpoint import load_params
+
+    jdt = getattr(jnp, dtype)
+    b = {k: jnp.asarray(v) for k, v in train_batches().items()}
+    cfg = trainer.TrainConfig(**TRAIN_CONFIG)
+    vlm = load_params(os.path.join(ROOT, "checkpoints", "vlm.npz"))
+    vlm["params"]["ctc_head"] = {"kernel": np.asarray(b["vlm_ctc_head_kernel"]),
+                                 "bias": np.asarray(b["vlm_ctc_head_bias"])}
+    crnn, craft, reader = CRNN(num_classes=97, dtype=jdt), CRAFT(dtype=jdt), PageReader(dtype=jdt)
+    comps = {
+        "crnn": (load_params(os.path.join(ROOT, "checkpoints", "crnn.npz")),
+                 lambda tx: trainer.make_crnn_train_step(crnn, tx),
+                 lambda p: trainer.crnn_loss(crnn, p, b["crnn_crops"], b["crnn_labels"], b["crnn_label_lens"],
+                                             b["crnn_frame_lens"]),
+                 ("crnn_crops", "crnn_labels", "crnn_label_lens", "crnn_frame_lens")),
+        "craft": (load_params(os.path.join(ROOT, "checkpoints", "craft.npz")),
+                  lambda tx: trainer.make_craft_train_step(craft, tx),
+                  lambda p: trainer.craft_loss(craft, p, b["craft_pages"], b["craft_maps"]),
+                  ("craft_pages", "craft_maps")),
+        "vlm": (vlm,
+                lambda tx: trainer.make_vlm_train_step(reader, tx, ctc_weight=TRAIN_CTC_WEIGHT),
+                lambda p: trainer.vlm_loss(reader, p, b["vlm_pages"], b["vlm_tokens"], b["vlm_tok_lens"])
+                + TRAIN_CTC_WEIGHT * trainer.vlm_ctc_aux_loss(reader, p, b["vlm_pages"], b["vlm_char_labels"],
+                                                              b["vlm_char_lens"]),
+                ("vlm_pages", "vlm_tokens", "vlm_tok_lens", "vlm_char_labels", "vlm_char_lens")),
+    }
+    record = {"dtype": dtype, "config": TRAIN_CONFIG, "steps": TRAIN_STEPS, "ctc_weight": TRAIN_CTC_WEIGHT,
+              "jax": jax.__version__, "components": {}}
+    samples = {}
+    for name, (tree, make_step, loss_fn, keys) in comps.items():
+        t0 = time.perf_counter()
+        params = jax.tree_util.tree_map(jnp.asarray, tree)
+        tx = trainer.make_optimizer(cfg)
+        opt_state = tx.init(params)
+        grads = jax.grad(loss_fn)(params)
+        step = make_step(tx)
+        p = jax.tree_util.tree_map(jnp.array, params)  # the step donates its arguments
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            p, opt_state, loss = step(p, opt_state, *(b[k] for k in keys))
+            losses.append(float(loss))
+        leaves = {}
+        g_leaves = dict(_leaves(jax.device_get(grads)))
+        for path, value in _leaves(jax.device_get(p)):
+            flat = np.asarray(value, np.float32).ravel()
+            g = np.asarray(g_leaves[path], np.float32).ravel()
+            leaves[path] = {"size": int(flat.size), "sum": float(flat.astype(np.float64).sum()),
+                            "small_grads": int((np.abs(g) < 1e-6).sum())}
+            if dtype == "float32":
+                idx = np.sort(np.random.default_rng(0).choice(flat.size, min(flat.size, TRAIN_SAMPLES), replace=False))
+                samples[f"{name}/{path}/idx"] = idx.astype(np.int32)
+                samples[f"{name}/{path}/params"] = flat[idx]
+                samples[f"{name}/{path}/grad1"] = g[idx]
+        record["components"][name] = {
+            "losses": losses,
+            "grad_norm_1": float(np.sqrt(sum(float((np.asarray(v, np.float64) ** 2).sum()) for v in g_leaves.values()))),
+            "leaves": leaves,
+            "seconds": time.perf_counter() - t0,
+        }
+        print(f"{name}: losses {losses}, grad norm {record['components'][name]['grad_norm_1']:.6g}, "
+              f"{record['components'][name]['seconds']:.1f} s", flush=True)
+    return record, samples
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -1491,6 +1634,7 @@ def main() -> None:
     mode.add_argument("--server-route", action="store_true")
     mode.add_argument("--pricing", action="store_true")
     mode.add_argument("--vlm", action="store_true")
+    mode.add_argument("--train", action="store_true")
     p.add_argument("--canvas", default=None,
                    help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options, "
                         "--evaluate-real, --evaluate-books, --server-route)")
@@ -1545,6 +1689,14 @@ def main() -> None:
         out_path = args.out or os.path.join(data, f"vlm_jax_{suffix}.json")
         out["logits_file"] = os.path.basename(out_path)[: -len(".json")] + "_logits.npz"
         np.savez_compressed(os.path.join(os.path.dirname(out_path), out["logits_file"]), **logits)
+    elif args.train:
+        import numpy as np
+
+        out, samples = train_reference(args.dtype)
+        out_path = args.out or os.path.join(data, f"train_jax_{suffix}.json")
+        if samples:
+            out["samples_file"] = os.path.basename(out_path)[: -len(".json")] + ".npz"
+            np.savez_compressed(os.path.join(os.path.dirname(out_path), out["samples_file"]), **samples)
     elif args.covers:
         out = covers_without_route()
         out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")

@@ -123,10 +123,52 @@ def test_no_engine_extractor_takes_the_jax_route(monkeypatch, batching, shape):
 
 
 def test_shared_engine_names_missing_checkpoints(monkeypatch, tmp_path):
+    """With a checkpoint missing from ``BB_OCR_CKPT_DIR`` (here ``crnn.npz``;
+    ``craft.npz`` is there), both packages' shared engines fall back to
+    ``OCREngine.create()`` (untrained weights) wrapped in ``BatchingOCR``,
+    with the same parameter trees."""
+    import shutil
+
+    from bbocr_tpu_torch.models.convert import craft_state_dict, crnn_state_dict
+    from bbocr_tpu_torch.models.weights import fold_gray_stem
+
+    for name in ("craft.npz",):
+        shutil.copy(os.path.join(os.path.dirname(os.path.dirname(__file__)), "checkpoints", name), tmp_path)
     monkeypatch.setenv("BB_OCR_CKPT_DIR", str(tmp_path))
+    monkeypatch.delenv("BB_OCR_BATCHING", raising=False)
     monkeypatch.setattr(port_extractor_module, "_ENGINE_CACHE", {})
-    with pytest.raises(FileNotFoundError, match="craft.npz"):
-        BookMetadataExtractor(llm_backend="heuristic", device="cpu").engine
+    monkeypatch.setattr(jax_extractor_module, "_ENGINE_CACHE", {})
+    created = []
+    for cls in (OCREngine, JaxOCREngine):
+        original = cls.create.__func__
+
+        def create(c, *a, _original=original, **kw):
+            created.append(c.__module__.split(".")[0])
+            return _original(c, *a, **kw)
+
+        monkeypatch.setattr(cls, "create", classmethod(create))
+    port = BookMetadataExtractor(llm_backend="heuristic", device="cpu").engine
+    ref = jax_extractor_module.BookMetadataExtractor(llm_backend="heuristic", warm_model=False).engine
+    try:
+        assert sorted(created) == ["bbocr_tpu", "bbocr_tpu_torch"]
+        assert type(port).__name__ == type(ref).__name__ == "BatchingOCR"
+        assert type(port.engine).__name__ == type(ref.engine).__name__ == "OCREngine"
+        want_craft = craft_state_dict(fold_gray_stem(jax_tree(ref.engine.craft_params)))
+        want_crnn = crnn_state_dict(jax_tree(ref.engine.crnn_params))
+        for got, want in ((port.engine.craft.state_dict(), want_craft), (port.engine.crnn.state_dict(), want_crnn)):
+            assert {k: tuple(v.shape) for k, v in got.items()} == {k: tuple(v.shape) for k, v in want.items()}
+        # untrained: unit GroupNorm scales, LSTM forget-gate biases at 1
+        assert torch.all(port.engine.crnn.features.norms[0].weight == 1)
+        assert torch.all(port.engine.crnn.rnn0.fwd.b_ih.float()[256:512] == 1)
+    finally:
+        port.close()
+        ref.close()
+
+
+def jax_tree(tree):
+    if isinstance(tree, dict):
+        return {k: jax_tree(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,12 @@ without a session and without ``httpx`` it answers as the JAX service does
 without ``requests`` and ``httpx``. A sixth runs the PageReader: the
 extractor's ``tpu`` route without a session (the client reads the shipped
 checkpoint the service names, in bfloat16) and ``vlm_eval --real`` on one
-cover.
+cover. A seventh, with ``optax`` and ``orbax`` blocked too, imports every
+module of the port, checks that the synthetic generators, the training
+CLI's synthetic source and ``vlm_eval --synthetic`` raise naming Pillow,
+and runs the training CLI's recognizer loop on a recorded batch (save,
+resume, serve the checkpoint) and ``OCREngine.create()``. A last test reads
+the port's sources: none imports JAX, flax, optax, orbax or ``bbocr_tpu``.
 """
 
 import json
@@ -343,6 +348,71 @@ VLM_SCRIPT = BLOCKER + textwrap.dedent(
 )
 
 
+TRAIN_BLOCKER = BLOCKER.replace('"google"}', '"google", "optax", "orbax"}')
+assert TRAIN_BLOCKER != BLOCKER
+
+TRAIN_SCRIPT = TRAIN_BLOCKER + textwrap.dedent(
+    """
+    import importlib
+    import os
+    import pkgutil
+    import sys
+
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(2)
+    import bbocr_tpu_torch
+
+    imported = []
+    for info in pkgutil.walk_packages(bbocr_tpu_torch.__path__, "bbocr_tpu_torch."):
+        if not info.name.endswith("__main__"):
+            importlib.import_module(info.name)
+            imported.append(info.name)
+    from bbocr_tpu_torch.cli import train, vlm_eval
+    from bbocr_tpu_torch.models.charset import EN_CHARSET
+    from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
+    from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
+    from bbocr_tpu_torch.train import photo_aug, synth
+
+    refusals = {}
+    for name, call in (
+        ("lines", lambda: synth.TextLineGenerator(synth.SynthConfig(), seed=0).batch(1, width=64)),
+        ("pages", lambda: synth.PageGenerator(synth.SynthConfig(), seed=0).batch(1, 64, 64)),
+        ("labeled", lambda: synth.PageGenerator(synth.SynthConfig(), seed=0).batch_labeled(1, 64, 64)),
+        ("blur", lambda: photo_aug.gaussian_blur(__import__("random").Random(0), np.zeros((8, 8)))),
+        ("cli", lambda: train.train_crnn(train.build_parser().parse_args(
+            ["--component", "crnn", "--steps", "1", "--device", "cpu", "--data-threads", "1"]))),
+        ("vlm_eval", lambda: vlm_eval.eval_synthetic(None, 1, 1, 64, 48)),
+    ):
+        try:
+            call()
+            refusals[name] = None
+        except ImportError as e:
+            refusals[name] = str(e)
+
+    tmp = sys.argv[1]
+    with np.load("tests/data/train_batches.npz") as data:
+        batch = tuple(data[k][:4] for k in ("crnn_crops", "crnn_labels", "crnn_label_lens", "crnn_frame_lens"))
+    refs = [EN_CHARSET.decode_ids(batch[1][i][: batch[2][i]]) for i in range(2)]
+    flags = ["--component", "crnn", "--batch", "4", "--out", tmp, "--state-dir", os.path.join(tmp, "state"),
+             "--save-every", "1", "--log-every", "1", "--device", "cpu", "--init-from", "checkpoints/crnn.npz"]
+    first = train.train_crnn(train.build_parser().parse_args(flags + ["--steps", "1"]),
+                             source=train.Batches([batch]), val=(batch[0][:2], refs))
+    second = train.train_crnn(train.build_parser().parse_args(flags + ["--steps", "2"]),
+                              source=train.Batches([batch]), val=(batch[0][:2], refs))
+    config = EngineConfig(canvases=(CanvasSpec(320, 416),), compute_dtype=torch.float32)
+    trained = OCREngine.from_checkpoint("checkpoints/craft.npz", second["path"], config, device="cpu")
+    image = np.asarray(np.random.default_rng(0).integers(0, 256, (300, 400)), np.float32)
+    fresh = OCREngine.create(config=config, device="cpu")
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+    print(json.dumps({"loaded": loaded, "imported": imported, "refusals": refusals,
+                      "start": second["start_step"], "steps": [r["step"] for r in second["log"]],
+                      "states": sorted(os.listdir(os.path.join(tmp, "state"))),
+                      "trained_reads": len(trained.readtext(image)) >= 0, "fresh_reads": len(fresh.readtext(image)) >= 0}))
+    """
+)
+
 def _run_blocked(script, *args):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BB_OCR_BATCHING")}
     env["PYTHONPATH"] = ROOT
@@ -466,3 +536,39 @@ def test_pagereader_runs_without_jax_flax_pillow_or_requests(tmp_path):
     assert out["path"] == "checkpoints/vlm.npz"
     assert out["meta"]["_processing_info"]["llm_backend"] == "tpu" and "title" in out["meta"]
     assert out["real"]["books"] == 1 and out["real"]["rows"][0]["book"] == "covers/book2"
+
+
+def test_training_runs_without_jax_flax_optax_orbax_or_pillow(tmp_path):
+    """Every module of the port imports with JAX, flax, optax, orbax and
+    Pillow blocked; the generators, the CLI's synthetic source and
+    ``vlm_eval --synthetic`` raise ``ImportError`` naming Pillow; the CLI's
+    recognizer loop trains on a recorded batch, saves its state, resumes,
+    and its checkpoint serves, as does ``OCREngine.create()``."""
+    out = _run_blocked(TRAIN_SCRIPT, str(tmp_path))
+    assert out["loaded"] == []
+    assert {"bbocr_tpu_torch.train.trainer", "bbocr_tpu_torch.train.synth", "bbocr_tpu_torch.cli.train",
+            "bbocr_tpu_torch.utils.train_ckpt"} <= set(out["imported"])
+    assert all(why is not None and "Pillow" in why for why in out["refusals"].values()), out["refusals"]
+    assert out["start"] == 1 and out["steps"] == [2] and out["states"] == ["step_1", "step_2"]
+    assert out["trained_reads"] and out["fresh_reads"]
+
+
+def test_port_sources_import_nothing_of_jax():
+    """No module of ``bbocr_tpu_torch`` and not ``chip_smoke.py`` imports
+    ``jax``, ``flax``, ``optax``, ``orbax`` or ``bbocr_tpu``, at the top or
+    inside a function."""
+    import ast
+
+    banned = {"jax", "jaxlib", "flax", "optax", "orbax", "bbocr_tpu"}
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(ROOT, "bbocr_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    found = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = [a.name for a in node.names] if isinstance(node, ast.Import) else (
+                [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level else [])
+            found += [(os.path.relpath(path, ROOT), n) for n in names if n.split(".")[0] in banned]
+    assert len(paths) > 80 and found == []

@@ -324,6 +324,24 @@ def test_vlm_eval_real_matches_jax(tree, tmp_path):
 
 
 def test_vlm_eval_synthetic_is_not_ported(monkeypatch):
+    """``--synthetic`` is ported (``tests/test_torch_train_cli.py`` holds
+    it to JAX's with a model): the CLI scores the held-out synthetic pages
+    as JAX's does, here with a stub model that reads every page as its JSON
+    minus the title."""
+    from bbocr_tpu.cli import vlm_eval as jax_vlm_eval
+
+    def reads(count):
+        def generate(*args):
+            pages = args[-1]
+            count.append(pages.shape)
+            return ['{"publisher": "x"}'] * len(pages)
+        return generate
+
+    seen = {"port": [], "jax": []}
     monkeypatch.setattr(vlm_eval, "_load", lambda *a, **k: None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        vlm_eval.main(["--synthetic", "--device", "cpu"])
+    monkeypatch.setattr(vlm_eval, "_generate", reads(seen["port"]))
+    monkeypatch.setattr(jax_vlm_eval, "_generate", reads(seen["jax"]))
+    got = vlm_eval.main(["--synthetic", "--device", "cpu", "--n", "3", "--batch", "2", "--page-h", "64",
+                         "--page-w", "48"])["synthetic"]
+    assert got == jax_vlm_eval.eval_synthetic(None, None, 3, 2, 64, 48)
+    assert seen["port"] == seen["jax"] == [(2, 64, 48), (1, 64, 48)]
