@@ -10,4 +10,12 @@ Entry points take ``device=`` and default to ``"cuda"``; the CPU runs only
 when a caller asks for it. On CUDA tensors the preprocessing chain runs the
 hand-written kernels in ``csrc/preprocess.cu``; on CPU tensors their plain
 PyTorch versions.
+
+Multi-device serving and training run SPMD over a ``torch.distributed``
+process group (``parallel/``): one process per card, the batch split over
+``dp`` and the widest products over ``tp``.
 """
+
+from bbocr_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

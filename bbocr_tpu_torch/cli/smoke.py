@@ -4,10 +4,12 @@ Counterpart of ``bbocr_tpu/cli/smoke.py``: push the first book of a books
 directory through the pipeline via the CLI driver, and check that an
 output JSON lands with the expected contract. Exit code 0 = healthy.
 
+    python -m bbocr_tpu_torch.cli.smoke --device cpu          # synthetic book
     python -m bbocr_tpu_torch.cli.smoke --books-dir books --device cpu
 
-Without ``--books-dir`` the JAX runner renders a synthetic book with
-``cli/make_examples.py``, which is not ported (ROADMAP.md Queue 1 item 14b).
+Without ``--books-dir`` it renders one synthetic book with
+``cli/make_examples.py``, which draws with Pillow (``ImportError`` naming
+it where it is missing).
 """
 
 from __future__ import annotations
@@ -21,19 +23,21 @@ import tempfile
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Pipeline smoke test")
-    p.add_argument("--books-dir", default=None, help="existing books dir (rendering one is not ported)")
+    p.add_argument("--books-dir", default=None, help="existing books dir (default: render one)")
     p.add_argument("--llm-backend", default="heuristic")
     p.add_argument("--ocr-engine", default="tpu")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
+    workdir = tempfile.mkdtemp(prefix="bbocr_smoke_")
     books_dir = args.books_dir
     if books_dir is None:
-        raise NotImplementedError(
-            "rendering a synthetic book (cli/make_examples.py) is not ported yet: see ROADMAP.md Queue 1 item 14b; "
-            "pass --books-dir"
-        )
-    workdir = tempfile.mkdtemp(prefix="bbocr_smoke_")
+        from bbocr_tpu_torch.cli.make_examples import make_book
+
+        books_dir = os.path.join(workdir, "books")
+        make_book(books_dir, 0, seed=42)
+        print(f"rendered synthetic book -> {books_dir}/1")
+
     book_id = sorted(
         d for d in os.listdir(books_dir) if os.path.isdir(os.path.join(books_dir, d))
     )[0]

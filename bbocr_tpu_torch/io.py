@@ -10,7 +10,9 @@ them. Other images (progressive JPEG, palette or 16-bit PNG, other formats)
 go through Pillow, imported only then. ``decode_rgb`` does the same for
 an image's bytes, by their signature, and ``load_gray`` gives what
 Pillow's ``convert("L")`` gives of either (``pil_gray_u8``: its 16-bit
-fixed-point luma).
+fixed-point luma). ``imread_gray`` gives what OpenCV's
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` gives of a PNG or a baseline
+JPEG: libpng's RGB-to-gray rule, libjpeg's luma plane.
 
 The encoding side reproduces what the JAX extractor asks of Pillow:
 ``pil_thumbnail_u8`` is ``Image.thumbnail`` (Pillow 12: the aspect-keeping
@@ -30,7 +32,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from bbocr_tpu_torch.native.jpeg import UnsupportedJPEG, decode_jpeg, encode_rgb, read_jpeg
+from bbocr_tpu_torch.native.jpeg import UnsupportedJPEG, decode_jpeg, decode_jpeg_luma, encode_rgb, read_jpeg
 from bbocr_tpu_torch.ops.resize import pil_reduce_u8, pil_resample_u8
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -177,6 +179,39 @@ def load_gray(source) -> np.ndarray:
     Pillow, for a path (``load_rgb``) or an image's bytes (``decode_rgb``)."""
     rgb = decode_rgb(source) if isinstance(source, bytes) else load_rgb(source)
     return pil_gray_u8(rgb).astype(np.float32)
+
+
+# libpng's png_set_rgb_to_gray default (ITU-R 601 0.299 and 0.587 in 15-bit
+# fixed point, blue the rest), truncated: what OpenCV reads as gray from an
+# 8-bit RGB PNG
+_PNG_GRAY = np.array([9797, 19234, 3737], np.int32)
+
+
+def png_gray_u8(rgb: np.ndarray) -> np.ndarray:
+    """libpng's RGB-to-gray of an (H, W, 3) uint8 array:
+    ``(9797 R + 19234 G + 3737 B) >> 15``."""
+    return ((rgb.astype(np.int32) @ _PNG_GRAY) >> 15).astype(np.uint8)
+
+
+def imread_gray(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` without OpenCV, bit for bit
+    (OpenCV 5.0.0), for PNGs of 8-bit gray or RGB and baseline JPEGs: a
+    gray PNG as it is, an RGB PNG by ``png_gray_u8``, a JPEG as libjpeg's
+    luma plane (``decode_jpeg_luma``). Any other PNG kind (RGBA, palette,
+    16-bit, interlaced) and any other format raise ``ValueError`` naming
+    it, rather than guess at OpenCV's conversion."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    if blob.startswith(b"\xff\xd8"):
+        return decode_jpeg_luma(blob, path)
+    if not blob.startswith(_PNG_SIGNATURE):
+        raise ValueError(f"{path}: imread_gray reads PNG and baseline JPEG only")
+    arr = decode_png(blob, path)
+    if arr.ndim == 2:
+        return arr
+    if arr.shape[2] != 3:
+        raise UnsupportedPNG(f"{path}: an RGBA PNG; imread_gray reads 8-bit gray and RGB PNGs only")
+    return png_gray_u8(arr)
 
 
 def as_u8_image(arr) -> np.ndarray:

@@ -26,9 +26,10 @@ from bbocr_tpu_torch.models.layers import (
     GroupNorm,
     Linear,
     conv2d_xla_order,
-    dot_xla_order,
     group_norm_of_conv,
+    sharded_dot,
 )
+from bbocr_tpu_torch.parallel.collectives import gather, into_tp
 
 INPUT_HEIGHT = 32  # recognizer crop height, fixed by the architecture
 
@@ -53,12 +54,16 @@ class VGGFeatures(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
 
+        def product(x, layer):  # unrounded; a tp slice's channels gathered
+            if layer.tp is None:
+                return conv2d_xla_order(x, layer.weight, layer.padding[0])
+            return gather(conv2d_xla_order(into_tp(x, layer.tp), layer.weight, layer.padding[0]), 1, layer.tp)
+
         def conv(x, layer):  # rounded product, then the bias: flax's two roundings
-            y = conv2d_xla_order(x, layer.weight, layer.padding[0]).to(dt)
-            return y + layer.bias[:, None, None]
+            return product(x, layer).to(dt) + layer.bias[:, None, None]
 
         def conv_norm(x, layer, norm):
-            y = conv2d_xla_order(x, layer.weight, layer.padding[0])
+            y = product(x, layer)
             if isinstance(norm, BatchNorm):  # flax op by op: the rounded product, normalised
                 return norm(y.to(dt))
             return group_norm_of_conv(y, norm, dt)
@@ -78,7 +83,11 @@ class VGGFeatures(nn.Module):
 class LSTMScan(nn.Module):
     """One direction's LSTM parameters in the JAX layout: ``w_ih`` (C, 4H),
     ``b_ih`` (4H), ``w_hh`` (H, 4H). ``BiLSTM`` runs both directions in one
-    step loop (``bidirectional_scan``)."""
+    step loop (``bidirectional_scan``). ``tp``: a
+    ``parallel.collectives.TPSlice`` when ``w_ih`` and ``w_hh`` are this
+    rank's slices of the gate columns."""
+
+    tp = None
 
     def __init__(self, cin: int, hidden: int):
         super().__init__()
@@ -104,20 +113,23 @@ def bidirectional_scan(x: torch.Tensor, fwd: LSTMScan, bwd: LSTMScan) -> torch.T
     values) and round once, as XLA's CPU dot does (``dot_xla_order``); in
     float32 nothing extra is rounded. The two directions share the loop: the
     backward one's inputs are flipped in time and stacked behind the
-    forward one's, so each step is one batched product for both.
+    forward one's, so each step is one batched product for both. Under
+    tensor parallelism each product gives this rank's gate columns and the
+    tp group gathers them, every step, before the bias and the gates.
     """
     b, t, c_in = x.shape
     dt = fwd.w_ih.dtype
     hidden = fwd.w_hh.shape[0]
     x = x.to(dt).float().reshape(b * t, c_in)
-    xz = torch.stack([dot_xla_order(x, d.w_ih.float()).to(dt).add_(d.b_ih).view(b, t, -1) for d in (fwd, bwd)])
+    tp = fwd.tp
+    xz = torch.stack([sharded_dot(x, d.w_ih.float(), tp).to(dt).add_(d.b_ih).view(b, t, -1) for d in (fwd, bwd)])
     xz = torch.stack([xz[0], xz[1].flip(1)]).transpose(1, 2).contiguous()  # (2, T, B, 4H), time-major
     w_hh = torch.stack([fwd.w_hh, bwd.w_hh]).float()  # (2, H, 4H)
     h = xz.new_zeros((2, b, hidden))
     c = torch.zeros_like(h)
     ys = xz.new_empty((2, t, b, hidden))
     for step in range(t):
-        z = dot_xla_order(h.float(), w_hh).to(dt).add_(xz[:, step])
+        z = sharded_dot(h.float(), w_hh, tp).to(dt).add_(xz[:, step])
         gates = _sigmoid(z)
         i, f, o = gates[..., :hidden], gates[..., hidden : 2 * hidden], gates[..., 3 * hidden :]
         g = torch.tanh(z[..., 2 * hidden : 3 * hidden])

@@ -17,6 +17,10 @@ engine's compiled program: its products sum in XLA's order
 are normalised as XLA fuses them (``group_norm_of_conv``).
 
 In float32 these layers compute exactly what their ``torch.nn`` bases do.
+Under tensor parallelism (``parallel/sharding.py``) a layer's ``tp`` holds
+its slice of the tp group: its weight is then this rank's slice of the
+output channels, the product gives that slice of the output, and the tp
+group gathers it (``parallel/collectives.py``) before the bias is added.
 ``cast_for_compute`` casts a model to the compute type and leaves the
 parameters and statistics of the normalisations in float32.
 """
@@ -26,6 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from bbocr_tpu_torch.parallel.collectives import gather, into_tp
 
 GROUPNORM_EPS = 1e-6  # flax.linen.GroupNorm's default
 BATCHNORM_EPS = 1e-5  # flax.linen.BatchNorm's default
@@ -69,7 +75,12 @@ class BatchNorm(nn.Module):
 class Conv2d(nn.Conv2d):
     """Conv2d whose bias, outside float32, is added to the rounded product."""
 
+    tp = None  # a parallel.collectives.TPSlice when the weight is a tp slice
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            y = gather(self._conv_forward(into_tp(x, self.tp), self.weight, None), 1, self.tp)
+            return y if self.bias is None else y + self.bias[:, None, None]
         if self.bias is None or x.dtype == torch.float32:
             return super().forward(x)
         return self._conv_forward(x, self.weight, None) + self.bias[:, None, None]
@@ -80,7 +91,12 @@ class Linear(nn.Linear):
     the product sums float32 operands in the order of XLA's CPU dot
     (``dot_xla_order``)."""
 
+    tp = None  # a parallel.collectives.TPSlice when the weight is a tp slice
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            y = gather(F.linear(into_tp(x, self.tp), self.weight), -1, self.tp)
+            return y if self.bias is None else y + self.bias
         if self.bias is None or x.dtype == torch.float32:
             return super().forward(x)
         return self.product(x).to(x.dtype) + self.bias
@@ -88,7 +104,7 @@ class Linear(nn.Linear):
     def product(self, x: torch.Tensor) -> torch.Tensor:
         """``x @ W.T`` in float32, unrounded."""
         flat = x.float().reshape(-1, x.shape[-1])
-        return dot_xla_order(flat, self.weight.float().T).reshape(*x.shape[:-1], -1)
+        return sharded_dot(flat, self.weight.float().T, self.tp).reshape(*x.shape[:-1], -1)
 
 
 # XLA's CPU dot, which the JAX package runs, sums the K axis in blocks of
@@ -112,6 +128,14 @@ def dot_xla_order(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for k0 in range(_BLOCK_K, k, _BLOCK_K):
         out.add_(torch.matmul(a[..., k0 : k0 + _BLOCK_K], w[..., k0 : k0 + _BLOCK_K, :]))
     return out
+
+
+def sharded_dot(a: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
+    """``dot_xla_order(a, w)``; with ``tp``, ``w`` holds this rank's slice of
+    the output columns and the tp group gathers the product's columns."""
+    if tp is None:
+        return dot_xla_order(a, w)
+    return gather(dot_xla_order(into_tp(a, tp), w), -1, tp)
 
 
 def _conv_k_blocks(k: int) -> int:

@@ -12,6 +12,10 @@ files raise ``UnsupportedJPEG``.
 ``Image.save(buf, "JPEG", quality=q)``, byte for byte (4:2:0, standard
 tables, islow DCT). It is built the same way, and a failed build raises
 naming g++.
+
+``decode_jpeg_luma`` is the decoder's grayscale output, libjpeg's
+``JCS_GRAYSCALE`` (what OpenCV's ``IMREAD_GRAYSCALE`` reads): the Y
+component through the same IDCT, with no colour conversion.
 """
 
 from __future__ import annotations
@@ -51,10 +55,11 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(build())
         u8p = ctypes.POINTER(ctypes.c_uint8)
-        for fn in (lib.bbocr_jpeg_header, lib.bbocr_jpeg_decode):
+        for fn in (lib.bbocr_jpeg_header, lib.bbocr_jpeg_decode, lib.bbocr_jpeg_decode_luma):
             fn.restype = ctypes.c_int
         lib.bbocr_jpeg_header.argtypes = [u8p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p, ctypes.c_int32]
-        lib.bbocr_jpeg_decode.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int32]
+        for fn in (lib.bbocr_jpeg_decode, lib.bbocr_jpeg_decode_luma):
+            fn.argtypes = [u8p, ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int32]
         _lib = lib
         return _lib
 
@@ -104,8 +109,7 @@ def _check(code: int, err, name: str) -> None:
     raise ValueError(f"{msg} (corrupt JPEG)")
 
 
-def decode_jpeg(blob: bytes, name: str = "JPEG") -> np.ndarray:
-    """JPEG bytes -> (H, W, 3) uint8 RGB, or (H, W) for a gray JPEG."""
+def _decode(blob: bytes, name: str, luma: bool) -> np.ndarray:
     lib = load()
     data = np.frombuffer(blob, np.uint8)
     src = data.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
@@ -113,9 +117,21 @@ def decode_jpeg(blob: bytes, name: str = "JPEG") -> np.ndarray:
     dims = (ctypes.c_int32 * 3)()
     _check(lib.bbocr_jpeg_header(src, data.size, dims, err, _ERR_LEN), err, name)
     h, w, c = dims
-    out = np.empty((h, w, c), np.uint8)
-    _check(lib.bbocr_jpeg_decode(src, data.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size, err, _ERR_LEN), err, name)
-    return out[..., 0] if c == 1 else out
+    out = np.empty((h, w, 1 if luma else c), np.uint8)
+    fn = lib.bbocr_jpeg_decode_luma if luma else lib.bbocr_jpeg_decode
+    _check(fn(src, data.size, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), out.size, err, _ERR_LEN), err, name)
+    return out[..., 0] if out.shape[2] == 1 else out
+
+
+def decode_jpeg(blob: bytes, name: str = "JPEG") -> np.ndarray:
+    """JPEG bytes -> (H, W, 3) uint8 RGB, or (H, W) for a gray JPEG."""
+    return _decode(blob, name, luma=False)
+
+
+def decode_jpeg_luma(blob: bytes, name: str = "JPEG") -> np.ndarray:
+    """JPEG bytes -> (H, W) uint8: the luma plane, as libjpeg decodes to
+    grayscale (no colour conversion; a subsampled Y upsampled as for RGB)."""
+    return _decode(blob, name, luma=True)
 
 
 def read_jpeg(path: str) -> np.ndarray:

@@ -21,8 +21,11 @@
 //              repeat that row (jdmainct.c);
 //   jdcolor.c  ycc_rgb_convert with SCALEBITS 16 tables.
 //
-// C interface, bound with ctypes: bbocr_jpeg_header, bbocr_jpeg_decode.
-// Both return 0, 1 (corrupt data) or 2 (unsupported variant) and write a
+// C interface, bound with ctypes: bbocr_jpeg_header, bbocr_jpeg_decode and
+// bbocr_jpeg_decode_luma, the grayscale output libjpeg gives for
+// out_color_space JCS_GRAYSCALE (what OpenCV's IMREAD_GRAYSCALE asks for):
+// the Y component through the same IDCT, upsampled where it is subsampled,
+// with no colour conversion (jdcolor.c grayscale_convert). All return 0, 1 (corrupt data) or 2 (unsupported variant) and write a
 // message into ``err``.
 
 #include <cstdint>
@@ -597,9 +600,20 @@ struct Decoder {
     return out;
   }
 
-  void finish(uint8_t* out) {
+  void check_scans() {
     for (int i = 0; i < ncomp; i++)
       if (!comp[i].latched) corrupt("a component has no scan");
+  }
+
+  // The luma plane alone, width x height (jdcolor.c grayscale_convert).
+  void finish_luma(uint8_t* out) {
+    check_scans();
+    std::vector<uint8_t> yy = upsample(comp[0]);
+    std::memcpy(out, yy.data(), yy.size());
+  }
+
+  void finish(uint8_t* out) {
+    check_scans();
     if (ncomp == 1) {
       const Component& c = comp[0];
       for (int y = 0; y < height; y++) std::memcpy(out + static_cast<size_t>(y) * width, c.plane.data() + static_cast<size_t>(y) * c.stride, width);
@@ -661,6 +675,21 @@ int bbocr_jpeg_decode(const uint8_t* data, int64_t size, uint8_t* out, int64_t o
     d.parse(false);
     if (out_size != static_cast<int64_t>(d.width) * d.height * d.ncomp) corrupt("output buffer has the wrong size");
     d.finish(out);
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, err_len);
+  } catch (const std::bad_alloc&) {
+    return report(Error{kCorrupt, "out of memory"}, err, err_len);
+  }
+}
+
+// out: height * width bytes, the luma plane (the only plane of a gray JPEG).
+int bbocr_jpeg_decode_luma(const uint8_t* data, int64_t size, uint8_t* out, int64_t out_size, char* err, int32_t err_len) {
+  try {
+    Decoder d(data, size);
+    d.parse(false);
+    if (out_size != static_cast<int64_t>(d.width) * d.height) corrupt("output buffer has the wrong size");
+    d.finish_luma(out);
     return 0;
   } catch (const Error& e) {
     return report(e, err, err_len);

@@ -29,6 +29,15 @@ and ``read_lines``. The detector follows the checkpoint's layout: CRAFT,
 ``CRAFTLite`` or the published ``CRAFTPublished`` (``type(engine.craft)``).
 The letterbox fills and host warps run on a process-wide pool of 8
 threads, as in the JAX engine; the box extraction runs in a loop.
+
+With a ``mesh`` (``parallel/mesh.py``, a (dp, tp) ``DeviceMesh``) serving
+runs SPMD: every rank makes the same calls with the same photos, and the
+host stages run replicated. Photo rows and crop batches are padded to dp
+multiples where the JAX engine pads them, each dp rank detects and
+recognizes its contiguous block of rows, and the blocks are all-gathered,
+so every rank returns the whole result. The widest weights
+(``parallel/sharding.py::param_shardings``) are split over tp, each rank
+keeping its slice, and their products gather their output channels.
 """
 
 from __future__ import annotations
@@ -68,6 +77,7 @@ from bbocr_tpu_torch.models import (
 )
 from bbocr_tpu_torch.models.craft import IMAGENET_MEAN, IMAGENET_STD
 from bbocr_tpu_torch.models.crnn import INPUT_HEIGHT
+from bbocr_tpu_torch.parallel.collectives import all_gather_cat
 from bbocr_tpu_torch.runtime import bucketing
 from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
 from bbocr_tpu_torch.runtime.fastpath import fast_readtext_program
@@ -141,12 +151,19 @@ class OCREngine:
         config: EngineConfig = None,
         charset: Charset = EN_CHARSET,
         device="cuda",
+        mesh: Any = None,
     ):
+        """``mesh``: optional (dp, tp) ``DeviceMesh`` (``parallel/mesh.py``);
+        the engine then serves SPMD over it on this rank's device: its card
+        (``cuda:<local rank>``) for a ``"cuda"`` device, the CPU only when
+        asked, matching the mesh's device type."""
         self.config = config if config is not None else EngineConfig()
         config = self.config
         if config.wire_bits not in (1, 2, 4, 8):
             raise ValueError(f"wire_bits must be 1, 2, 4, or 8 (got {config.wire_bits})")
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self._dp = mesh.size(0) if mesh is not None else 1
+        self.device = _rank_device(device, mesh) if mesh is not None else torch.device(device)
         self.charset = charset
         dtype = config.compute_dtype
         # Parameter-tree sniffing, as in the JAX engine: an imported published
@@ -170,6 +187,11 @@ class OCREngine:
         self.crnn = CRNN(num_classes=charset.num_classes)
         self.crnn.load_state_dict(crnn_state_dict(crnn_params), strict=True)
         cast_for_compute(self.crnn.to(self.device), dtype).eval()
+        if mesh is not None:
+            from bbocr_tpu_torch.parallel.sharding import shard_module
+
+            shard_module(self.craft, mesh)
+            shard_module(self.crnn, mesh)
         # tensor operands: CUDA divides by a Python number as a multiply by
         # its reciprocal, which is not the JAX engine's division
         self._255 = torch.tensor(255.0, device=self.device)
@@ -186,17 +208,15 @@ class OCREngine:
         """Engine with freshly initialised (untrained) parameters: flax's
         initialisers drawn from a ``torch.Generator`` seeded with ``seed``
         (``models/init.py``; the values are not ``jax.random``'s)."""
-        if mesh is not None:
-            raise NotImplementedError("a mesh-sharded engine is not ported: see ROADMAP.md Queue 1 item 13")
         from bbocr_tpu_torch.models.init import init_engine_params
 
         craft_params, crnn_params = init_engine_params(seed, charset.num_classes)
-        return cls(craft_params, crnn_params, config, charset, device=device)
+        return cls(craft_params, crnn_params, config, charset, device=device, mesh=mesh)
 
     @classmethod
     def from_checkpoint(
         cls, craft_path: str, crnn_path: str, config: EngineConfig = None,
-        charset: Charset = None, device="cuda",
+        charset: Charset = None, device="cuda", mesh: Any = None,
     ):
         """Charset defaults to the one the checkpoint's CTC head was trained with."""
         crnn_params = load_params(crnn_path)
@@ -206,7 +226,7 @@ class OCREngine:
                 charset = charset_for_num_classes(int(head.shape[0]))
             except (KeyError, ValueError):
                 charset = EN_CHARSET
-        return cls(load_params(craft_path), crnn_params, config, charset, device=device)
+        return cls(load_params(craft_path), crnn_params, config, charset, device=device, mesh=mesh)
 
     # ------------------------------------------------------------------
     # Device programs
@@ -271,6 +291,18 @@ class OCREngine:
             torch.where(better, conf2, conf),
         )
 
+    def _dp_rows(self, fn, *rows: torch.Tensor):
+        """``fn(*rows)`` on the whole rows without a mesh; under one, on this
+        rank's contiguous block of rows of its dp group (the row count is a
+        dp multiple), the outputs' blocks all-gathered in dp order."""
+        if self.mesh is None:
+            return fn(*rows)
+        k = rows[0].shape[0] // self._dp
+        r = self.mesh.get_local_rank("dp")
+        outs = fn(*(x[r * k : (r + 1) * k] for x in rows))
+        group = self.mesh.get_group("dp")
+        return tuple(all_gather_cat(o, 0, group, self._dp) for o in outs)
+
     # ------------------------------------------------------------------
     # Public API
     # ------------------------------------------------------------------
@@ -299,7 +331,9 @@ class OCREngine:
         stream. ``depth`` bounds the batches in flight (each holds its
         canvases on the device until its crops are dispatched); an empty
         batch yields ``[]``; an error in a stage is raised in the consumer
-        after the batches done before it.
+        after the batches done before it. Under a mesh the stages' collectives
+        must follow one order on every rank, so the batches are read in
+        turn on the consumer's thread (``readtext_batch`` each).
 
         A consumer that stops early (``close()``, an exception) stops the
         stages: detect takes no further batch, the middle stage lets the
@@ -308,6 +342,12 @@ class OCREngine:
         (The JAX engine's stream drains both queues and can take the detect
         stage's end marker from the middle stage, which then waits forever.)
         """
+        # (``getattr``: the stream's thread protocol also runs on stand-ins
+        # that carry only the three stages and the lock)
+        if getattr(self, "mesh", None) is not None:
+            for imgs in batches:
+                yield self.readtext_batch(imgs) if imgs else []
+            return
         with self._lock:
             q_mid: Any = queue.Queue(maxsize=depth)
             q_out: Any = queue.Queue(maxsize=depth)
@@ -433,6 +473,7 @@ class OCREngine:
                     _host_map(fill, list(enumerate(idxs)))
                     raw = torch.from_numpy(pack_canvas(batch, cfg.wire_bits)).to(self.device)
                     rows = bucketing.pad_count(len(idxs), _ROW_MENU)
+                    rows = -(-rows // self._dp) * self._dp  # dp-divisible under a mesh
                     if rows > raw.shape[0]:
                         raw = torch.cat([raw, raw.new_zeros((rows - raw.shape[0],) + raw.shape[1:])])
                     dev = unpack_widen(raw, cfg.wire_bits)
@@ -443,11 +484,11 @@ class OCREngine:
                     else 1
                 )
                 with self.timers.stage("detect"):
-                    masks, regions = self.detect(dev, pool)
+                    masks, regions = self._dp_rows(lambda g: self.detect(g, pool), dev)
                     coarse = None
                     if cfg.detect_coarse > 1 and pool == 1:
                         # a second pass over the same device canvas at 1/p
-                        coarse = self.detect(dev, cfg.detect_coarse) + (cfg.detect_coarse,)
+                        coarse = self._dp_rows(lambda g: self.detect(g, cfg.detect_coarse), dev) + (cfg.detect_coarse,)
                 pending.append((idxs, masks, regions, pool, coarse))
         return {
             "n_img": len(images), "scales": scales, "canvas_batches": canvas_batches,
@@ -497,6 +538,7 @@ class OCREngine:
         dispatched = []
         for bucket_w, entries in buckets.items():
             cap = bucketing.pad_count(len(entries), cfg.batch_capacities)
+            cap = -(-cap // self._dp) * self._dp  # dp-divisible under a mesh
             if cfg.host_rectify:
                 # each crop warped from the original gray at native detail,
                 # uploaded as uint8 and widened on the device
@@ -556,7 +598,8 @@ class OCREngine:
         valid = np.zeros(cap, bool)
         valid[: len(order)] = True
         with self.timers.stage("recognize"):
-            ids, lens, conf = self.recognize(
+            ids, lens, conf = self._dp_rows(
+                self.recognize,
                 all_crops,
                 torch.from_numpy(np.maximum(lengths, 1)).to(self.device),
                 torch.from_numpy(valid).to(self.device),
@@ -794,6 +837,21 @@ def _host_map(fn, tasks: list) -> None:
         list(_letterbox_pool().map(fn, tasks))
     else:
         _serial_map(fn, tasks)
+
+
+def _rank_device(device, mesh) -> torch.device:
+    """This rank's device under ``mesh``: ``cuda`` without an index is the
+    rank's card (``LOCAL_RANK``, as torchrun sets it, else the rank modulo
+    the cards); its type must be the mesh's."""
+    dev = torch.device(device)
+    if dev.type != mesh.device_type:
+        raise ValueError(f"the engine's device {dev} is not of the mesh's type {mesh.device_type!r}")
+    if dev.type == "cuda" and dev.index is None:
+        import torch.distributed as dist
+
+        local = os.environ.get("LOCAL_RANK")
+        dev = torch.device("cuda", int(local) if local is not None else dist.get_rank() % torch.cuda.device_count())
+    return dev
 
 
 # cv2 COLOR_RGB2GRAY fixed point: Y = (R*9798 + G*19235 + B*3735 + 2^14) >> 15

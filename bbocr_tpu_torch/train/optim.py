@@ -28,6 +28,8 @@ The schedules are optax's (``linear_schedule``, ``cosine_decay_schedule``,
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Any, Callable, NamedTuple, Tuple, Union
 
@@ -150,7 +152,26 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
 # ---------------------------------------------------------------------------
 
 
+# Under tensor parallelism a step's leaves are this rank's slices of the
+# split weights: its sum of squares must count each slice once over the tp
+# group and each replicated leaf once (train/trainer.py installs it).
+_SUM_OF_SQUARES = contextvars.ContextVar("sum_of_squares", default=None)
+
+
+@contextlib.contextmanager
+def sum_of_squares(fn: Callable):
+    """Within the block, ``global_norm(tree)`` is ``sqrt(fn(tree))``."""
+    token = _SUM_OF_SQUARES.set(fn)
+    try:
+        yield
+    finally:
+        _SUM_OF_SQUARES.reset(token)
+
+
 def global_norm(tree) -> torch.Tensor:
+    fn = _SUM_OF_SQUARES.get()
+    if fn is not None:
+        return torch.sqrt(fn(tree))
     return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(tree)))
 
 

@@ -17,8 +17,18 @@ per-step scan and CRAFT's layers, differentiated by autograd.
 
 The step makers return plain functions ``(params, opt_state, *batch) ->
 (params, opt_state, loss)`` (the joint step ``(state, batch) -> (state,
-metrics)``), as the JAX ones return jitted programs. A ``mesh`` is not
-ported (ROADMAP.md Queue 1 item 13).
+metrics)``), as the JAX ones return jitted programs.
+
+With a ``mesh`` (``parallel/mesh.py``) a step runs SPMD: every rank calls
+it with the same whole batch and state and takes its dp block of the
+batch. The losses normalise over the global batch as GSPMD's do (the
+counts they divide by are all-reduced over dp first, each rank's partial
+sums divided by them), the partial losses and the gradients are summed over
+dp, and every rank returns the same whole state and metrics. The joint
+step also splits the widest weights over tp (``param_shardings``) and
+Adam's moments with them (``_shard_opt_like``): each rank computes with
+its slices, clips by the norm that counts every slice once over the tp
+group, updates its slices elementwise, and gathers them whole again.
 
 No TPU kernel lies on this path: the JAX trainer reaches no Pallas call,
 and what XLA compiles there (losses, CTC, optimizer, backward passes) is
@@ -27,10 +37,12 @@ plain PyTorch here.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -45,10 +57,16 @@ from bbocr_tpu_torch.models.convert import (
 )
 from bbocr_tpu_torch.models.craft import IMAGENET_MEAN, IMAGENET_STD, CRAFTLite
 from bbocr_tpu_torch.models.layers import BatchNorm
+from bbocr_tpu_torch.parallel.sharding import (
+    param_shardings,
+    replicate_sharding,
+    shard_tree,
+    tp_layers,
+    tree_map_with_path,
+    unshard_tree,
+)
 from bbocr_tpu_torch.train import optim
 from bbocr_tpu_torch.train.ctc import ctc_loss
-
-_MESH_ITEM = "a mesh-sharded train step is not ported: see ROADMAP.md Queue 1 item 13"
 
 
 @dataclass(frozen=True)
@@ -203,9 +221,19 @@ def _const(value: float, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def crnn_loss(crnn: CRNN, params, crops, labels, label_lens, frame_lens, dtype=None) -> torch.Tensor:
+def _batch_mean(x: torch.Tensor, total) -> torch.Tensor:
+    """The mean over the batch, or, with ``total`` (a rank's counts -> the
+    global ones), this rank's part of the global batch's mean."""
+    if total is None:
+        return torch.mean(x)
+    return x.sum() / total(torch.tensor(float(x.shape[0]), device=x.device))
+
+
+def crnn_loss(crnn: CRNN, params, crops, labels, label_lens, frame_lens, dtype=None, total=None) -> torch.Tensor:
     """CTC loss on (B, 32, W) crops in [0,255] (any dtype; u8 on the wire),
-    each sequence's loss divided by its label length, averaged."""
+    each sequence's loss divided by its label length, averaged. Every loss
+    takes ``total``: under a mesh, the function from a rank's counts to the
+    global batch's, so that the rank computes its part of the global loss."""
     logits = crnn_logits(crnn, params, crops, dtype)  # (B, T, C)
     _, t, _ = logits.shape
     frame_idx = torch.arange(t, device=logits.device)[None, :]
@@ -214,10 +242,11 @@ def crnn_loss(crnn: CRNN, params, crops, labels, label_lens, frame_lens, dtype=N
     label_pad = (label_idx >= label_lens[:, None]).float()
     per_seq = ctc_loss(logits, logit_pad, labels, label_pad)
     norm = torch.clamp(label_lens.float(), min=1.0)
-    return torch.mean(per_seq / norm)
+    return _batch_mean(per_seq / norm, total)
 
 
-def craft_loss(craft: nn.Module, params, pages, target_maps, neg_ratio: float = 3.0, dtype=None) -> torch.Tensor:
+def craft_loss(craft: nn.Module, params, pages, target_maps, neg_ratio: float = 3.0, dtype=None,
+               total=None) -> torch.Tensor:
     """Balanced MSE on region/affinity heatmaps.
 
     ``pages``: (B, H, W) gray [0,255]; targets (B, H/2, W/2, 2) in [0,1], or
@@ -229,16 +258,17 @@ def craft_loss(craft: nn.Module, params, pages, target_maps, neg_ratio: float = 
         target_maps = target_maps.float()
     pred = craft_maps(craft, params, pages, dtype)
     err = (pred - target_maps) ** 2
+    total = total or (lambda count: count)
     pos = (target_maps > 0.1).float()
-    n_pos = torch.clamp(pos.sum(), min=1.0)
+    n_pos = torch.clamp(total(pos.sum()), min=1.0)
     pos_loss = (err * pos).sum() / n_pos
     neg = 1.0 - pos
-    n_neg = torch.clamp(neg.sum(), min=1.0)
+    n_neg = torch.clamp(total(neg.sum()), min=1.0)
     neg_loss = (err * neg).sum() / n_neg
     return pos_loss + neg_ratio * neg_loss
 
 
-def vlm_loss(model: nn.Module, params, pages, tokens, tok_lens) -> torch.Tensor:
+def vlm_loss(model: nn.Module, params, pages, tokens, tok_lens, total=None) -> torch.Tensor:
     """Next-token cross-entropy of the PageReader, PAD positions masked.
 
     ``pages`` (B, H, W) gray in [0,255]; ``tokens`` (B, L) padded BOS..EOS.
@@ -251,10 +281,11 @@ def vlm_loss(model: nn.Module, params, pages, tokens, tok_lens) -> torch.Tensor:
     mask = (steps < (tok_lens - 1)[:, None]).float()
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum() if total is None else total(mask.sum())
+    return (nll * mask).sum() / torch.clamp(count, min=1.0)
 
 
-def vlm_ctc_aux_loss(model: nn.Module, params, pages, char_labels, char_lens) -> torch.Tensor:
+def vlm_ctc_aux_loss(model: nn.Module, params, pages, char_labels, char_lens, total=None) -> torch.Tensor:
     """CTC over the row-major encoder token grid against the page's
     transcription (``PageReader.encode_ctc``): every grid token is a frame."""
     _, ctc_logits = apply(model, params, pages.float()[..., None], method="encode_ctc")
@@ -263,7 +294,7 @@ def vlm_ctc_aux_loss(model: nn.Module, params, pages, char_labels, char_lens) ->
     label_idx = torch.arange(char_labels.shape[1], device=ctc_logits.device)[None, :]
     label_pad = (label_idx >= char_lens[:, None]).float()
     per_seq = ctc_loss(ctc_logits, logit_pad, char_labels, label_pad)
-    return torch.mean(per_seq / torch.clamp(char_lens.float(), min=1.0))
+    return _batch_mean(per_seq / torch.clamp(char_lens.float(), min=1.0), total)
 
 
 # ---------------------------------------------------------------------------
@@ -311,16 +342,70 @@ def _update(tx, grads, opt_state, params):
     return optim.apply_updates(params, updates), new_opt
 
 
+class _MeshStep:
+    """A train step's collectives over a mesh's dp group: this rank's
+    contiguous block of each batch array, the losses' global counts, and
+    sums over dp."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.dp = mesh.size(0)
+        self.rank = mesh.get_local_rank("dp")
+        self.group = mesh.get_group("dp")
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        if n % self.dp:
+            raise ValueError(f"a batch of {n} does not split evenly over dp={self.dp}")
+        k = n // self.dp
+        return x[self.rank * k : (self.rank + 1) * k]
+
+    @property
+    def total(self):
+        """The losses' ``total``: None at dp = 1, where the local counts are
+        the global ones and the loss is the unsharded one."""
+        return self._total if self.dp > 1 else None
+
+    def _total(self, count: torch.Tensor) -> torch.Tensor:
+        count = count.detach().clone()
+        dist.all_reduce(count, group=self.group)
+        return count
+
+    def sum(self, tree):
+        """Every leaf (float32) summed over dp, in one all-reduce."""
+        leaves = optim.tree_leaves(tree)
+        flat = torch.cat([leaf.reshape(-1) for leaf in leaves])
+        dist.all_reduce(flat, group=self.group)
+        parts = iter(torch.split(flat, [leaf.numel() for leaf in leaves]))
+        return optim.tree_map(lambda leaf: next(parts).view_as(leaf), tree)
+
+
+def _dp_step(mesh, loss_fn):
+    """``(params, batch arrays) -> (loss, grads)`` of ``loss_fn(params,
+    arrays, total)``: on the whole batch without a mesh; under one, on this
+    rank's dp block with the global counts, loss and gradients summed over
+    dp."""
+    view = _MeshStep(mesh) if mesh is not None else None
+
+    def run(params, arrays):
+        if view is None:
+            loss, _, grads = value_and_grad(lambda p: loss_fn(p, arrays, None), params)
+            return loss, grads
+        arrays = [view.block(a) for a in arrays]
+        loss, _, grads = value_and_grad(lambda p: loss_fn(p, arrays, view.total), params)
+        return view.sum((loss, grads))
+
+    return run
+
+
 def make_crnn_train_step(crnn: CRNN, tx: optim.GradientTransformation, mesh: Any = None, dtype=None):
     """(params, opt_state, crops, labels, label_lens, frame_lens) ->
-    (params, opt_state, loss) for the recognizer alone."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+    (params, opt_state, loss) for the recognizer alone; with a ``mesh`` the
+    batch splits over dp and the parameters stay whole on every rank."""
+    run = _dp_step(mesh, lambda p, b, total: crnn_loss(crnn, p, *b, dtype, total=total))
 
     def step(params, opt_state, crops, labels, label_lens, frame_lens):
-        loss, _, grads = value_and_grad(
-            lambda p: crnn_loss(crnn, p, crops, labels, label_lens, frame_lens, dtype), params
-        )
+        loss, grads = run(params, (crops, labels, label_lens, frame_lens))
         return (*_update(tx, grads, opt_state, params), loss)
 
     return step
@@ -329,12 +414,12 @@ def make_crnn_train_step(crnn: CRNN, tx: optim.GradientTransformation, mesh: Any
 def make_craft_train_step(
     craft: nn.Module, tx: optim.GradientTransformation, mesh: Any = None, neg_ratio: float = 3.0, dtype=None,
 ):
-    """(params, opt_state, pages, maps) -> (params, opt_state, loss)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+    """(params, opt_state, pages, maps) -> (params, opt_state, loss); with a
+    ``mesh`` as ``make_crnn_train_step``."""
+    run = _dp_step(mesh, lambda p, b, total: craft_loss(craft, p, *b, neg_ratio, dtype, total=total))
 
     def step(params, opt_state, pages, maps):
-        loss, _, grads = value_and_grad(lambda p: craft_loss(craft, p, pages, maps, neg_ratio, dtype), params)
+        loss, grads = run(params, (pages, maps))
         return (*_update(tx, grads, opt_state, params), loss)
 
     return step
@@ -343,18 +428,20 @@ def make_craft_train_step(
 def make_vlm_train_step(model: nn.Module, tx: optim.GradientTransformation, mesh: Any = None, ctc_weight: float = 0.0):
     """(params, opt_state, pages, tokens, tok_lens[, char_labels, char_lens])
     -> (params, opt_state, loss); ``ctc_weight`` > 0 adds the encoder CTC
-    auxiliary loss, and the step then takes the two character arrays."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+    auxiliary loss, and the step then takes the two character arrays. With
+    a ``mesh`` as ``make_crnn_train_step``."""
+
+    def loss_fn(p, b, total):
+        pages, tokens, tok_lens, *ctc_batch = b
+        ce = vlm_loss(model, p, pages, tokens, tok_lens, total=total)
+        if ctc_weight > 0.0:
+            ce = ce + ctc_weight * vlm_ctc_aux_loss(model, p, pages, *ctc_batch, total=total)
+        return ce
+
+    run = _dp_step(mesh, loss_fn)
 
     def step(params, opt_state, pages, tokens, tok_lens, *ctc_batch):
-        def loss_fn(p):
-            ce = vlm_loss(model, p, pages, tokens, tok_lens)
-            if ctc_weight > 0.0:
-                ce = ce + ctc_weight * vlm_ctc_aux_loss(model, p, pages, *ctc_batch)
-            return ce
-
-        loss, _, grads = value_and_grad(loss_fn, params)
+        loss, grads = run(params, (pages, tokens, tok_lens, *ctc_batch))
         return (*_update(tx, grads, opt_state, params), loss)
 
     return step
@@ -373,26 +460,76 @@ def make_joint_train_step(
 
     ``batch``: dict with pages (B,H,W), maps (B,H/2,W/2,2), crops (B2,32,W2),
     labels (B2,L), label_lens (B2,), frame_lens (B2,).
+
+    With a mesh, pass ``state_example`` (for the shardings): the batch
+    splits over dp, the widest weights and their Adam moments over tp.
     """
-    if mesh is not None:
-        raise NotImplementedError(_MESH_ITEM)
+
+    def loss_fn(both, batch, total):
+        cp, rp = both
+        l_det = craft_loss(craft, cp, batch["pages"], batch["maps"], config.detector_neg_ratio, dtype, total=total)
+        l_rec = crnn_loss(
+            crnn, rp, batch["crops"], batch["labels"], batch["label_lens"], batch["frame_lens"], dtype, total=total
+        )
+        return l_det + l_rec, {"loss_det": l_det.detach(), "loss_rec": l_rec.detach()}
+
+    if mesh is None:
+        def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+            both = (state.craft_params, state.crnn_params)
+            loss, metrics, grads = value_and_grad(lambda p: loss_fn(p, batch, None), both)
+            (new_craft, new_crnn), new_opt = _update(tx, grads, state.opt_state, both)
+            metrics = dict(metrics, loss=loss)
+            return TrainState(state.step + 1, new_craft, new_crnn, new_opt), metrics
+
+        return step
+
+    if state_example is None:
+        raise ValueError("state_example is required when sharding over a mesh")
+    view = _MeshStep(mesh)
+    param_sh = (param_shardings(state_example.craft_params, mesh), param_shardings(state_example.crnn_params, mesh))
+    opt_sh = _shard_opt_like(state_example.opt_state, param_sh, mesh)
+    split = [sh.axis("tp") is not None for sh in optim.tree_leaves(param_sh)]
+    tp_group = mesh.get_group("tp")
+
+    def sum_of_squares(grads) -> torch.Tensor:
+        # each split leaf's slices once over the tp group, each replicated leaf once
+        squares = [torch.sum(g * g) for g in optim.tree_leaves(grads)]
+        local = torch.stack([q for q, s in zip(squares, split) if s]).sum()
+        dist.all_reduce(local, group=tp_group)
+        return sum(q for q, s in zip(squares, split) if not s) + local
+
+    norm = optim.sum_of_squares(sum_of_squares) if any(split) else contextlib.nullcontext()
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        def loss_fn(both):
-            cp, rp = both
-            l_det = craft_loss(craft, cp, batch["pages"], batch["maps"], config.detector_neg_ratio, dtype)
-            l_rec = crnn_loss(
-                crnn, rp, batch["crops"], batch["labels"], batch["label_lens"], batch["frame_lens"], dtype
-            )
-            return l_det + l_rec, {"loss_det": l_det.detach(), "loss_rec": l_rec.detach()}
-
-        both = (state.craft_params, state.crnn_params)
-        loss, metrics, grads = value_and_grad(loss_fn, both)
-        (new_craft, new_crnn), new_opt = _update(tx, grads, state.opt_state, both)
+        batch = {k: view.block(v) for k, v in batch.items()}
+        both = shard_tree((state.craft_params, state.crnn_params), param_sh)
+        with tp_layers(craft, param_sh[0], mesh), tp_layers(crnn, param_sh[1], mesh):
+            loss, metrics, grads = value_and_grad(lambda p: loss_fn(p, batch, view.total), both)
+        loss, metrics, grads = view.sum((loss, metrics, grads))
+        with norm:
+            new_both, new_opt = _update(tx, grads, shard_tree(state.opt_state, opt_sh), both)
+        new_craft, new_crnn = unshard_tree(new_both, param_sh)
         metrics = dict(metrics, loss=loss)
-        return TrainState(state.step + 1, new_craft, new_crnn, new_opt), metrics
+        return TrainState(state.step + 1, new_craft, new_crnn, unshard_tree(new_opt, opt_sh)), metrics
 
     return step
+
+
+def _shard_opt_like(opt_state: Any, param_sh: Any, mesh) -> Any:
+    """Optimizer-state shardings: leaves whose tree path ends with a
+    parameter path (Adam's mu/nu mirror the parameter tree) take that
+    parameter's sharding; everything else (the counts) is replicated."""
+    repl = replicate_sharding(mesh)
+    flat: Dict[tuple, Any] = {}
+    tree_map_with_path(lambda path, sh: flat.__setitem__(path, sh), param_sh)
+
+    def rule(path, leaf):
+        for pk, sh in flat.items():
+            if len(path) >= len(pk) and path[-len(pk):] == pk:
+                return sh
+        return repl
+
+    return tree_map_with_path(rule, opt_state)
 
 
 def craft_model(tree: Any) -> nn.Module:

@@ -1,11 +1,13 @@
-"""Per-stage wall-clock accumulator the engine reports through ``timings()``."""
+"""Per-stage wall-clock accumulator the engine reports through
+``timings()``, and ``device_trace``, a profiler trace around a block."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 
 class StageTimer:
@@ -45,3 +47,25 @@ class StageTimer:
     def reset(self) -> None:
         with self._lock:
             self._stats.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None):
+    """A ``torch.profiler`` trace of the block when a directory is
+    configured (``log_dir``, else ``BB_OCR_PROFILE_DIR``), exported as a
+    Chrome trace (``trace_<pid>_<ns>.json``) into it on exit; a no-op
+    otherwise. It records the CPU, and CUDA where a card is present."""
+    log_dir = log_dir or os.environ.get("BB_OCR_PROFILE_DIR")
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

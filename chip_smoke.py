@@ -206,6 +206,29 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    saved ``crnn.npz`` read by ``OCREngine.from_checkpoint`` through the
    extractor on ``book1.png`` (each kernel launched), and
    ``OCREngine.create()`` reading the same photo.
+15. the data CLIs: (a) ``harvest_real_crops``'s loop over
+   ``data/real/`` (21 books, 29 photos) with a float32 engine (TF32 off),
+   held to the JAX package's float32 CPU harvest
+   (``tests/data/harvest_jax_f32.json``, crops in ``_crops.npz``): the same
+   crop names, labels, decodes and alignments, confidences within 1e-3,
+   crop pixels within 1; the one box where the two float32 harvests can
+   part (``covers/book5``, ``HARVEST_WITNESS``) follows the side the
+   card's map takes; then ``harvest()`` once as shipped (bfloat16), its
+   counts and seconds printed; (b) ``make_pipeline_crops``'s harvest of the
+   four 704x512 pages the JAX ``PageGenerator(seed=0)`` drew
+   (``tests/data/pipeline_pages.npz``) against ``pipeline_jax_f32.json``;
+   (c) one read under ``utils/profiling.py::device_trace`` (its Chrome
+   trace must name a CUDA kernel), ``cli/smoke.py`` without ``--books-dir``
+   (``ImportError`` naming Pillow where Pillow is missing,
+   ``FileNotFoundError`` naming a DejaVu font where only that is, else a
+   passing run), ``__version__``.
+16. multi-device (``parallel/``) on a 1x1 mesh of one NCCL rank
+   (``single_device_mesh()``), bit for bit in float32 against the
+   unsharded path: the mesh engine's ``readtext_batch`` over the five
+   covers, ``BookMetadataExtractor`` given the mesh engine over
+   ``books/1`` to ``books/3`` (each kernel's launches counted, the
+   ``launches_mesh_route`` column), one joint step and one CRNN step on the
+   recorded batches; then the group is destroyed.
 
 Phases 4 to 7 run the engine of the first slices (device warps from the
 canvas, greedy decode), as their references were recorded; phases 8 and 9
@@ -2651,6 +2674,341 @@ def time_train(runs, card) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the data CLIs (cli/harvest_real_crops.py, make_pipeline_crops.py,
+# smoke.py's rendering route) and the leftovers
+# ---------------------------------------------------------------------------
+
+HARVEST_REFERENCE = os.path.join(ROOT, "tests", "data", "harvest_jax_f32.json")
+PIPELINE_REFERENCE = os.path.join(ROOT, "tests", "data", "pipeline_jax_f32.json")
+PIPELINE_PAGES = os.path.join(ROOT, "tests", "data", "pipeline_pages.npz")
+CONF_TOLERANCE = 1e-3  # labels.json's conf, rounded to 3 decimals
+
+
+# One float32 box of the harvest can differ from JAX's: in covers/book5.png
+# the quantized region plane's pixel (25, 27) lies within 3e-6 of 102.5 / 255
+# (0.40196148 in the port's CPU map, 0.40195879 in JAX's;
+# ``HARVEST_WITNESS``), so the port downloads 103 where JAX has 102, on the
+# other side of low_text (0.4) for the multi-line split. The port then lacks
+# JAX's box 1 of that photo ("199", not kept), and the photo's later crops
+# are numbered one lower. Which side the card's map takes decides which
+# harvest it must give (``check_harvest``).
+HARVEST_WITNESS = os.path.join(ROOT, "tests", "data", "harvest_witness_jax_f32.json")
+HARVEST_SHIFT = ("covers_book5_book5", 1)  # (crop tag, JAX's index of the box the port lacks)
+
+
+def shifted_names(names, tag: str, lost: int) -> dict:
+    """JAX crop name -> the port's, when the port lacks JAX's box ``lost``
+    of the photo ``tag`` (its later boxes are numbered one lower)."""
+    out = {}
+    for name in names:
+        stem, k = name[: -len("_00.png")], int(name[-6:-4])
+        out[name] = name if stem != tag or k < lost else None if k == lost else f"{stem}_{k - 1:02d}.png"
+    return out
+
+
+def card_witness_q(dev, witness_path: str) -> tuple:
+    """(the card's quantized region value, the port CPU's, JAX's) at the
+    witness pixel of ``witness_path``'s photo, read as the harvest reads it."""
+    from bbocr_tpu_torch.io import imread_gray
+    from bbocr_tpu_torch.runtime import bucketing
+
+    with open(witness_path) as f:
+        w = json.load(f)
+    gray = engine_module._to_gray_u8(imread_gray(os.path.join(REAL_DIR, w["book"], w["image"])))
+    h, wd = w["canvas"]
+    _, oh, ow = bucketing.letterbox_params(gray.shape[0], gray.shape[1], bucketing.CanvasSpec(h, wd))
+    batch = np.zeros((1, h, wd), np.float32)
+    batch[0, :oh, :ow] = engine_module._host_resize(gray, oh, ow)
+    engine = default_engine(dev, torch.float32)
+    _, region_q = engine.detect(torch.from_numpy(batch).to(dev))
+    p = w["quantized_pixels"][0]
+    got = int(region_q[0, p["y"], p["x"]])
+    print(f"  harvest witness ({w['book']}/{w['image']}, canvas {h}x{wd}): quantized region at ({p['y']}, "
+          f"{p['x']}) {got} on the card, {p['port_q']} on the port's CPU ({p['port_region']!r}), {p['jax_q']} in "
+          f"JAX ({p['jax_region']!r})", flush=True)
+    return got, p["port_q"], p["jax_q"]
+
+
+def harvest_problems(out_dir: str, labels: dict, ref_path: str, renames=None) -> list:
+    """Differences of a harvest (``labels`` and the crops written into
+    ``out_dir``) from the JAX package's recorded one: the same crop names,
+    labels, decodes, ``align_cer`` and ``align_margin``, ``conf`` within
+    1e-3, and the same crop shapes with pixels within 1 (the device warp's
+    float32 sums land within 1e-3 of JAX's, and a truncation to uint8 can
+    turn that into 1)."""
+    from bbocr_tpu_torch.io import read_png
+
+    with open(ref_path) as f:
+        ref = json.load(f)
+    with np.load(os.path.join(os.path.dirname(ref_path), ref["crops_file"])) as data:
+        ref_crops = {k: data[k] for k in data.files}
+    renames = renames or {}
+    expected = {renames.get(name, name): name for name in ref["labels"] if renames.get(name, name) is not None}
+    problems = []
+    if sorted(labels) != sorted(expected):
+        problems.append(f"crops {sorted(set(labels) ^ set(expected))} are in one harvest only")
+    pixels = 0
+    for name in sorted(set(labels) & set(expected)):
+        got, want = labels[name], ref["labels"][expected[name]]
+        for key in ("label", "decode", "align_cer", "align_margin"):
+            if got[key] != want[key]:
+                problems.append(f"{name}: {key} {got[key]!r}, JAX {want[key]!r}")
+        if abs(got["conf"] - want["conf"]) > CONF_TOLERANCE + 1e-9:
+            problems.append(f"{name}: conf {got['conf']}, JAX {want['conf']}")
+        crop, ref_crop = read_png(os.path.join(out_dir, name)), ref_crops[expected[name]]
+        if crop.shape != ref_crop.shape:
+            problems.append(f"{name}: crop {crop.shape}, JAX {ref_crop.shape}")
+            continue
+        diff = np.abs(crop.astype(int) - ref_crop)
+        pixels += int((diff > 0).sum())
+        if diff.max() > 1:
+            problems.append(f"{name}: crop pixels differ by up to {diff.max()}")
+    print(f"  {len(labels)} crops against JAX's {len(ref['labels'])}; {pixels} crop pixels differ by 1", flush=True)
+    return problems
+
+
+def check_harvest(dev, card) -> None:
+    """15a: ``harvest_real_crops``'s loop over ``data/real/`` with a float32
+    engine (TF32 off), held to the JAX package's float32 CPU run; then
+    ``harvest()`` once as shipped (its bfloat16 engine), counts printed."""
+    import tempfile
+
+    from bbocr_tpu_torch.cli import harvest_real_crops
+
+    engine = OCREngine.from_checkpoint(os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
+                                       float32_config(), device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        stats = harvest_real_crops.harvest_corpus(engine, tmp, data_dir=REAL_DIR)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(tmp, "labels.json")) as f:
+            labels = json.load(f)
+        print(f"15a float32: {json.dumps(stats)} in {seconds:.3f} s [{card}]", flush=True)
+        got_q, port_q, jax_q = card_witness_q(dev, HARVEST_WITNESS)
+        if got_q not in (port_q, jax_q):
+            fail(f"harvest witness: the card's quantized region is {got_q}, neither the port's {port_q} nor JAX's {jax_q}")
+        renames = None
+        if got_q == port_q:
+            with open(HARVEST_REFERENCE) as f:
+                renames = shifted_names(json.load(f)["labels"], *HARVEST_SHIFT)
+            print(f"  the card takes the port's side: JAX's box {HARVEST_SHIFT[1]} of {HARVEST_SHIFT[0]} is "
+                  "expected missing and that photo's later crops renumbered", flush=True)
+        problems = harvest_problems(tmp, labels, HARVEST_REFERENCE, renames)
+    if problems:
+        fail(f"the float32 harvest differs from the JAX package's: {problems[:10]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        stats = harvest_real_crops.harvest(os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"), tmp,
+                                           data_dir=REAL_DIR, device=dev)
+        torch.cuda.synchronize()
+        print(f"15a harvest() as shipped (bfloat16): {json.dumps(stats)} in {time.perf_counter() - t0:.3f} s "
+              f"[{card}]", flush=True)
+    if stats["crops_kept"] < 1:
+        fail("harvest() kept no crop")
+
+
+def check_pipeline_harvest(dev, card) -> None:
+    """15b: ``make_pipeline_crops``'s harvest (``harvest_image`` with its gate
+    0.3 and ``margin_accept=(0.6, 0.25)``) of the four 704x512 pages the
+    JAX ``PageGenerator(seed=0)`` drew, float32, held to the JAX run."""
+    import tempfile
+
+    from bbocr_tpu_torch.cli.harvest_real_crops import harvest_image
+
+    engine = OCREngine.from_checkpoint(os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
+                                       float32_config(), device=dev)
+    with np.load(PIPELINE_PAGES) as data:
+        pages = {k: data[k] for k in data.files}
+    labels, stats = {}, {"pages": 0, "crops_seen": 0, "crops_kept": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for i in range(len(pages) // 2):
+            stats["pages"] += 1
+            harvest_image(engine, pages[f"page{i}"], json.loads(str(pages[f"phrases{i}"])), f"page{i:05d}", tmp,
+                          labels, stats, max_cer=0.3, margin_accept=(0.6, 0.25))
+        print(f"15b: {json.dumps(stats)} in {time.perf_counter() - t0:.3f} s [{card}]", flush=True)
+        problems = harvest_problems(tmp, labels, PIPELINE_REFERENCE)
+    if problems:
+        fail(f"the pipeline harvest differs from the JAX package's: {problems[:10]}")
+
+
+def check_leftovers(dev, card) -> None:
+    """15c: one read under ``device_trace`` (a Chrome trace naming a CUDA
+    kernel), ``cli/smoke.py`` without ``--books-dir`` (it renders with
+    Pillow and the DejaVu fonts: ``ImportError`` naming Pillow where it is
+    missing, ``FileNotFoundError`` naming a font file where that is, else a
+    passing smoke run), and ``__version__``."""
+    import importlib.util
+    import tempfile
+
+    import bbocr_tpu_torch
+    from bbocr_tpu_torch.cli import make_examples, smoke
+    from bbocr_tpu_torch.utils.profiling import device_trace
+
+    engine = OCREngine.from_checkpoint(os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz"),
+                                       float32_config(), device=dev)
+    image = load_rgb(BOOK1)
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            engine.readtext(image)
+            torch.cuda.synchronize()
+        traces = [f for f in os.listdir(tmp) if f.endswith(".json")]
+        if len(traces) != 1:
+            fail(f"device_trace wrote {traces}")
+        with open(os.path.join(tmp, traces[0])) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernel_names = {e.get("name") for e in events if e.get("cat") == "kernel"}
+    print(f"15c: device_trace: {len(events)} events, {len(kernel_names)} CUDA kernels, e.g. "
+          f"{sorted(kernel_names)[:3]}", flush=True)
+    if not kernel_names:
+        fail("the device trace names no CUDA kernel")
+    pillow = importlib.util.find_spec("PIL") is not None
+    fonts = [f for f in (make_examples._FONTS_BOLD, make_examples._FONTS_REG, make_examples._FONTS_SERIF)
+             if not os.path.exists(f)]
+    try:
+        rc = smoke.main(["--device", str(dev)])
+    except ImportError as e:
+        if pillow or "Pillow" not in str(e):
+            fail(f"smoke without --books-dir raised ImportError({e}) (Pillow importable: {pillow})")
+        print(f"15c: smoke without --books-dir, no Pillow here: ImportError({e})", flush=True)
+    except FileNotFoundError as e:
+        if not pillow or not fonts or fonts[0] not in str(e):
+            fail(f"smoke without --books-dir raised FileNotFoundError({e}) (missing fonts: {fonts})")
+        print(f"15c: smoke without --books-dir, Pillow here but not its fonts: FileNotFoundError({e})", flush=True)
+    else:
+        if not pillow or fonts or rc != 0:
+            fail(f"smoke without --books-dir returned {rc} (Pillow importable: {pillow}, missing fonts: {fonts})")
+        print("15c: smoke without --books-dir rendered a book and passed", flush=True)
+    if bbocr_tpu_torch.__version__ != "0.1.0":
+        fail(f"__version__ is {bbocr_tpu_torch.__version__}")
+    print(f"15c: bbocr_tpu_torch.__version__ = {bbocr_tpu_torch.__version__}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: multi-device (parallel/, the engine's and the trainer's mesh)
+# ---------------------------------------------------------------------------
+
+MESH_BOOKS = ("1", "2", "3")
+
+
+def results_identical(a, b) -> bool:
+    return [[(np.asarray(q).tolist(), t, c) for q, t, c in r] for r in a] == \
+        [[(np.asarray(q).tolist(), t, c) for q, t, c in r] for r in b]
+
+
+def check_mesh(dev, card) -> dict:
+    """16: a 1x1 mesh of one NCCL rank (``single_device_mesh()``), held bit
+    for bit in float32 to the unsharded path: the mesh engine's
+    ``readtext_batch`` over the five covers, ``BookMetadataExtractor`` given
+    the mesh engine over ``books/1`` to ``books/3`` (the kernels' launches
+    counted over it), one joint step and one CRNN step on the recorded
+    batches. Returns the launches."""
+    import torch.distributed as dist
+
+    from bbocr_tpu_torch.models import CRAFT, CRNN
+    from bbocr_tpu_torch.parallel.mesh import single_device_mesh
+    from bbocr_tpu_torch.train import TrainConfig, TrainState, make_joint_train_step, make_optimizer
+    from bbocr_tpu_torch.train import trainer
+    from bbocr_tpu_torch.train.optim import tree_leaves
+    from bbocr_tpu_torch.utils.checkpoint import load_params
+
+    t0 = time.perf_counter()
+    mesh = single_device_mesh()
+    print(f"16: torch.cuda.device_count() = {torch.cuda.device_count()}; mesh {mesh.shape} {mesh.mesh_dim_names} "
+          f"on {mesh.device_type}, backend {dist.get_backend()}, set up in {time.perf_counter() - t0:.3f} s", flush=True)
+    ckpt = [os.path.join(CKPT, "craft.npz"), os.path.join(CKPT, "crnn.npz")]
+    sharded = OCREngine.from_checkpoint(*ckpt, float32_config(), device=dev, mesh=mesh)
+    plain = OCREngine.from_checkpoint(*ckpt, float32_config(), device=dev)
+    covers = [load_rgb(os.path.join(REAL_DIR, "covers", f"book{i}.png")) for i in (1, 2, 4, 5, 6)]
+    t0 = time.perf_counter()
+    got = sharded.readtext_batch(covers)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = plain.readtext_batch(covers)
+    print(f"16: the five covers through the mesh engine: {sum(map(len, got))} boxes in {seconds:.3f} s [{card}]",
+          flush=True)
+    if not results_identical(got, want):
+        fail("the mesh engine's readtext_batch differs from the unsharded engine's")
+
+    books = [[os.path.join(BOOKS_DIR, b, f) for f in sorted(os.listdir(os.path.join(BOOKS_DIR, b)))
+              if f.lower().endswith(".jpg")] for b in MESH_BOOKS]
+    metas = {}
+    for name, engine in (("plain", plain), ("mesh", sharded)):
+        extractor = BookMetadataExtractor(llm_backend="heuristic", engine=engine, device=dev)
+        kernels.reset_launches()
+        metas[name] = []
+        for images in books:
+            meta = extractor.extract_metadata_from_images(images)
+            meta.pop("_processing_info")
+            metas[name].append(meta)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in kernels.KERNELS.items()}
+    print(f"16: books/1-3 through the extractor with the mesh engine: titles "
+          f"{[m.get('title') for m in metas['mesh']]}; kernel launches {launches}", flush=True)
+    if metas["mesh"] != metas["plain"]:
+        fail("the extractor's metadata with the mesh engine differs from the unsharded engine's")
+    for k, count in launches.items():
+        if count < 1:
+            fail(f"kernel {k} was not launched on the mesh route")
+
+    with np.load(TRAIN_BATCHES) as data:
+        b = {k: torch.from_numpy(data[k]).to(dev) for k in data.files}
+    craft, crnn = CRAFT().to(dev), CRNN(num_classes=97).to(dev)
+    craft.dtype = crnn.dtype = torch.float32
+    cp = trainer.to_params(craft, load_params(ckpt[0]), dev)
+    rp = trainer.to_params(crnn, load_params(ckpt[1]), dev)
+    tx = make_optimizer(TrainConfig())
+    state = TrainState(torch.zeros((), dtype=torch.int32, device=dev), cp, rp, tx.init((cp, rp)))
+    joint = {"pages": b["craft_pages"], "maps": b["craft_maps"], "crops": b["crnn_crops"][:8],
+             "labels": b["crnn_labels"][:8], "label_lens": b["crnn_label_lens"][:8],
+             "frame_lens": b["crnn_frame_lens"][:8]}
+    crnn_batch = tuple(b[k] for k in ("crnn_crops", "crnn_labels", "crnn_label_lens", "crnn_frame_lens"))
+    def leaves(tree):
+        return [leaf for leaf in tree_leaves(tree) if torch.is_tensor(leaf)]
+
+    def max_diff(a, b) -> float:
+        return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+                   for x, y in zip(leaves(a), leaves(b)))
+
+    # cuDNN's weight gradients and the CTC's scatter-adds sum with atomics
+    # unless told not to: the steps run with deterministic algorithms, and
+    # the unsharded step twice, to show the comparison is bit for bit
+    with deterministic_algorithms():
+        for name, run in (
+            ("joint", lambda m: make_joint_train_step(craft, crnn, tx, mesh=m, state_example=state)(state, joint)),
+            ("crnn", lambda m: trainer.make_crnn_train_step(crnn, tx, mesh=m)(rp, tx.init(rp), *crnn_batch)),
+        ):
+            t0 = time.perf_counter()
+            got = run(mesh)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            want, again = run(None), run(None)
+            print(f"16: {name} step under the mesh: {len(leaves(got))} leaves, largest difference from the unsharded "
+                  f"step {max_diff(got, want)!r} (the unsharded step against itself {max_diff(again, want)!r}), "
+                  f"{seconds:.3f} s [{card}]", flush=True)
+            if max_diff(again, want) == 0 and max_diff(got, want) != 0:
+                fail(f"the {name} step under the 1x1 mesh differs from the unsharded step")
+            if max_diff(again, want) != 0:
+                fail(f"the unsharded {name} step is not reproducible under deterministic algorithms")
+    dist.destroy_process_group()
+    return launches
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+
+
 def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     pre = _preprocess(rgb, 1.5, dev, ops)
     image = pre.cpu().numpy()
@@ -2795,13 +3153,23 @@ def main() -> int:
     del runs
     phase("phase 14c: the training CLI's loop on the card: save, resume, serve the checkpoint")
     check_train_cli(dev, card)
+    phase("phase 15a: harvest_real_crops over data/real/ (float32 against JAX, then as shipped)")
+    check_harvest(dev, card)
+    phase("phase 15b: make_pipeline_crops's harvest of four recorded pages")
+    check_pipeline_harvest(dev, card)
+    phase("phase 15c: device_trace, smoke's rendering route, __version__")
+    check_leftovers(dev, card)
+    phase("phase 16: a 1x1 mesh (NCCL): the engine, the extractor and two train steps against the unsharded path")
+    for name, count in check_mesh(dev, card).items():
+        report[name]["launches_mesh_route"] = count
     phase("end: the kernels' line and the result")
 
     print(card, flush=True)
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms", "device_ms_l2_flushed",
              "launches_default_route", "launches_shared_route", "launches_autocrop_route", "launches_evaluate_books",
-             "launches_llm_route", "launches_service", "launches_pagereader_route", "launches_training"]
+             "launches_llm_route", "launches_service", "launches_pagereader_route", "launches_training",
+             "launches_mesh_route"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -655,20 +655,36 @@ def threshold_witness() -> dict:
     each map, every map pixel whose detection mask differs, with both
     packages' values there, and a 9x9 patch of both region maps around the
     first such pixel."""
+    import numpy as np
+
+    from bbocr_tpu.cli.evaluate_real import _load_gray
+
+    book, name, k = WITNESS_PHOTO
+    return _maps_witness(book, name, k, np.rot90(_load_gray(os.path.join(ROOT, "data", "real", book, name)), k))
+
+
+def harvest_witness() -> dict:
+    """``threshold_witness`` for ``HARVEST_WITNESS_PHOTO`` as
+    ``harvest_real_crops`` reads it (``cv2.imread`` in gray, unturned)."""
+    import cv2
+
+    book, name = HARVEST_WITNESS_PHOTO
+    return _maps_witness(book, name, 0, cv2.imread(os.path.join(ROOT, "data", "real", book, name), cv2.IMREAD_GRAYSCALE))
+
+
+def _maps_witness(book: str, name: str, k: int, image) -> dict:
     import jax
     import jax.numpy as jnp
     import numpy as np
     import torch
 
-    from bbocr_tpu.cli.evaluate_real import _load_gray
     from bbocr_tpu.runtime import bucketing
     from bbocr_tpu.runtime.engine import EngineConfig, OCREngine, _host_resize, _to_gray_u8
     from bbocr_tpu_torch.runtime import EngineConfig as PortConfig
     from bbocr_tpu_torch.runtime import OCREngine as PortEngine
 
-    book, name, k = WITNESS_PHOTO
     craft, crnn = (os.path.join(ROOT, "checkpoints", f) for f in ("craft.npz", "crnn.npz"))
-    gray = _to_gray_u8(np.rot90(_load_gray(os.path.join(ROOT, "data", "real", book, name)), k))
+    gray = _to_gray_u8(image)
     jax_engine = OCREngine.from_checkpoint(craft, crnn, EngineConfig(compute_dtype=jnp.float32))
     canvas = bucketing.pick_canvas(gray.shape[0], gray.shape[1], jax_engine.config.canvases)
     _, oh, ow = bucketing.letterbox_params(gray.shape[0], gray.shape[1], canvas)
@@ -695,8 +711,18 @@ def threshold_witness() -> dict:
                     "jax_region": float(jax_maps[y, x, 0]), "port_affinity": float(port_maps[y, x, 1]),
                     "jax_affinity": float(jax_maps[y, x, 1])} for y, x in pixels],
     }
-    if len(pixels):
-        y, x = (int(v) for v in pixels[0])
+    # the quantized region plane (round(region * 255), as both engines
+    # download it) feeds the multi-line split (q / 255 > low_text) and the
+    # labeler's text threshold: pixels on either side of one of them
+    quant = [np.round(m[..., 0] * np.float32(255.0)) / np.float32(255.0) for m in (port_maps, jax_maps)]
+    sides = [np.stack([q > det.low_text, q > det.text_threshold]) for q in quant]
+    moved = np.argwhere((sides[0] != sides[1]).any(0) & masks[1])
+    if len(moved):
+        out["quantized_pixels"] = [
+            {"y": int(y), "x": int(x), "port_region": float(port_maps[y, x, 0]), "jax_region": float(jax_maps[y, x, 0]),
+             "port_q": int(round(quant[0][y, x] * 255)), "jax_q": int(round(quant[1][y, x] * 255))} for y, x in moved]
+    if len(pixels) or len(moved):
+        y, x = (int(v) for v in (pixels[0] if len(pixels) else moved[0]))
         window = (slice(max(y - 4, 0), y + 5), slice(max(x - 4, 0), x + 5), 0)
         out["patch_origin"] = [window[0].start, window[1].start]
         out["port_region_patch"] = port_maps[window].tolist()
@@ -1615,6 +1641,165 @@ def train_reference(dtype: str) -> tuple:
     return record, samples
 
 
+PIPELINE_PAGES = os.path.join(ROOT, "tests", "data", "pipeline_pages.npz")
+# the harvest's photo where one float32 box of the port differs (covers/book5)
+HARVEST_WITNESS_PHOTO = ("covers", "book5.png")
+PIPELINE_PAGE_COUNT, PIPELINE_PAGE_HW = 4, (704, 512)
+PIPELINE_MAX_CER, PIPELINE_MARGIN = 0.3, (0.6, 0.25)  # make_pipeline_crops.py's gate and margin
+MESH_SAMPLES = 32  # recorded elements per parameter leaf of the sharded step
+
+
+def _crop_pixels(out_dir: str, labels: dict) -> dict:
+    """Each written crop's pixels, as OpenCV reads the PNG back."""
+    import cv2
+
+    return {name: cv2.imread(os.path.join(out_dir, name), cv2.IMREAD_GRAYSCALE) for name in labels}
+
+
+def harvest_run() -> tuple:
+    """``harvest_real_crops.harvest`` over ``data/real/`` with a float32
+    engine (default configuration otherwise); (record, crop pixels)."""
+    import tempfile
+
+    from bbocr_tpu.cli.harvest_real_crops import harvest
+
+    with tempfile.TemporaryDirectory() as tmp, _jax_config(_default_config("float32", None)):
+        t0 = time.perf_counter()
+        stats = harvest(os.path.join(ROOT, "checkpoints", "craft.npz"), os.path.join(ROOT, "checkpoints", "crnn.npz"),
+                        tmp, data_dir=os.path.join(ROOT, "data", "real"))
+        with open(os.path.join(tmp, "labels.json")) as f:
+            labels = json.load(f)
+        crops = _crop_pixels(tmp, labels)
+    print(json.dumps(stats), f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"dtype": "float32", "stats": stats, "labels": labels}, crops
+
+
+def pipeline_pages() -> dict:
+    """``PIPELINE_PAGE_COUNT`` pages drawn by the JAX ``PageGenerator(seed=0)``
+    at 704x512 as ``make_pipeline_crops`` draws them, with their phrases
+    (drawn once, then read back)."""
+    import numpy as np
+
+    if os.path.exists(PIPELINE_PAGES):
+        with np.load(PIPELINE_PAGES) as data:
+            return {k: data[k] for k in data.files}
+    from bbocr_tpu.train.synth import PageGenerator, SynthConfig
+
+    gen = PageGenerator(SynthConfig(), seed=0)
+    out = {}
+    for i in range(PIPELINE_PAGE_COUNT):
+        page, _ = gen.render(*PIPELINE_PAGE_HW)
+        phrases = [t for t in getattr(gen, "last_texts", []) if t.strip()]
+        if not phrases:
+            phrases = [t for t in getattr(gen.lines, "last_texts", []) if t.strip()]
+        out[f"page{i}"] = page.astype(np.uint8)
+        out[f"phrases{i}"] = np.asarray(json.dumps(phrases))
+    np.savez_compressed(PIPELINE_PAGES, **out)
+    return out
+
+
+def pipeline_run() -> tuple:
+    """``make_pipeline_crops``'s harvest of the recorded pages
+    (``harvest_image`` with its gate and ``margin_accept``) by a float32
+    engine; (record, crop pixels)."""
+    import tempfile
+
+    from bbocr_tpu.cli.harvest_real_crops import harvest_image
+    from bbocr_tpu.runtime.engine import OCREngine
+
+    pages = pipeline_pages()
+    engine = OCREngine.from_checkpoint(os.path.join(ROOT, "checkpoints", "craft.npz"),
+                                       os.path.join(ROOT, "checkpoints", "crnn.npz"),
+                                       _default_config("float32", None))
+    labels, stats = {}, {"pages": 0, "crops_seen": 0, "crops_kept": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i in range(PIPELINE_PAGE_COUNT):
+            phrases = json.loads(str(pages[f"phrases{i}"]))
+            stats["pages"] += 1
+            harvest_image(engine, pages[f"page{i}"], phrases, f"page{i:05d}", tmp, labels, stats,
+                          max_cer=PIPELINE_MAX_CER, margin_accept=PIPELINE_MARGIN)
+        crops = _crop_pixels(tmp, labels)
+    print(json.dumps(stats), flush=True)
+    return {"dtype": "float32", "stats": stats, "labels": labels}, crops
+
+
+# The sharded set-up of tests/test_runtime.py's mesh tests (dp=4, tp=2 on
+# 8 virtual CPU devices), which tests/test_torch_parallel.py repeats
+MESH_CANVAS = (128, 96)
+MESH_PHOTOS = (5, 200, 150, 1)  # count, height, width, seed of the noise photos
+
+
+def mesh_photos():
+    import numpy as np
+
+    n, h, w, seed = MESH_PHOTOS
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 255, (h, w), np.uint8) for _ in range(n)]
+
+
+def mesh_engine_config(jnp):
+    from bbocr_tpu.runtime import EngineConfig
+    from bbocr_tpu.runtime.bucketing import CanvasSpec
+
+    return EngineConfig(canvases=(CanvasSpec(*MESH_CANVAS),), width_buckets=(32, 64), batch_capacities=(4, 8),
+                        compute_dtype=jnp.float32)
+
+
+def mesh_batch() -> dict:
+    """The joint step's batch of the JAX mesh test: 4 pages at 64x64 and 4
+    crops at width 64 from the JAX generators (seed 1)."""
+    from bbocr_tpu.train.synth import PageGenerator, TextLineGenerator
+
+    pages, maps = PageGenerator(seed=1).batch(4, 64, 64)
+    crops, labels, label_lens, frame_lens = TextLineGenerator(seed=1).batch(4, width=64)
+    return {"pages": pages, "maps": maps, "crops": crops, "labels": labels, "label_lens": label_lens,
+            "frame_lens": frame_lens}
+
+
+def mesh_reference() -> tuple:
+    """The JAX package on a dp=4, tp=2 mesh of 8 virtual CPU devices:
+    ``readtext_batch`` of the mesh engine (``OCREngine.create(seed=0)``'s
+    parameters) over the five noise photos, and one float32
+    ``make_joint_train_step`` from ``create_train_state(dtype=float32)`` on
+    ``mesh_batch()``: its losses and, per parameter leaf, ``MESH_SAMPLES``
+    elements of the parameters and of Adam's moments after the step."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from bbocr_tpu.parallel import MeshConfig, make_mesh
+    from bbocr_tpu.runtime import OCREngine
+    from bbocr_tpu.train import create_train_state, make_joint_train_step
+
+    if len(jax.devices()) < 8:
+        raise SystemExit("--mesh needs 8 devices: XLA_FLAGS=--xla_force_host_platform_device_count=8")
+    mesh = make_mesh(MeshConfig(dp=4, tp=2))
+    cfg = mesh_engine_config(jnp)
+    ref = OCREngine.create(seed=0, config=cfg)
+    sharded = OCREngine(jax.device_get(ref.craft_params), jax.device_get(ref.crnn_params), cfg, mesh=mesh)
+    engine = [{"texts": [t for _, t, _ in r], "quads": [np.asarray(q, np.float64).tolist() for q, _, _ in r],
+               "confidences": [float(c) for _, _, c in r]} for r in sharded.readtext_batch(mesh_photos())]
+
+    state, craft, crnn, tx = create_train_state(dtype=jnp.float32)
+    step = make_joint_train_step(craft, crnn, tx, mesh=mesh, state_example=state)
+    batch = {k: jnp.asarray(v) for k, v in mesh_batch().items()}
+    state2, metrics = step(state, batch)
+    adam = jax.device_get(state2.opt_state[1][0])
+    samples = {}
+    trees = {"params": (state2.craft_params, state2.crnn_params), "mu": adam.mu, "nu": adam.nu}
+    for kind, (craft_tree, crnn_tree) in trees.items():
+        for model, tree in (("craft", craft_tree), ("crnn", crnn_tree)):
+            for path, value in _leaves(jax.device_get(tree)["params"]):
+                flat = np.asarray(value, np.float32).ravel()
+                idx = np.sort(np.random.default_rng(0).choice(flat.size, min(flat.size, MESH_SAMPLES), replace=False))
+                samples[f"{kind}/{model}/{path}/idx"] = idx.astype(np.int32)
+                samples[f"{kind}/{model}/{path}/value"] = flat[idx]
+    record = {"mesh": {"dp": 4, "tp": 2}, "canvas": MESH_CANVAS, "photos": MESH_PHOTOS, "engine": engine,
+              "step": {k: float(v) for k, v in metrics.items()}, "jax": jax.__version__}
+    print(json.dumps(record["step"]), [r["texts"] for r in engine], flush=True)
+    return record, samples
+
+
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = p.add_mutually_exclusive_group()
@@ -1635,6 +1820,10 @@ def main() -> None:
     mode.add_argument("--pricing", action="store_true")
     mode.add_argument("--vlm", action="store_true")
     mode.add_argument("--train", action="store_true")
+    mode.add_argument("--harvest", action="store_true")
+    mode.add_argument("--harvest-witness", action="store_true")
+    mode.add_argument("--pipeline", action="store_true")
+    mode.add_argument("--mesh", action="store_true")
     p.add_argument("--canvas", default=None,
                    help="HxW: one canvas instead of the menu (--default-route, --autocrop, --engine-options, "
                         "--evaluate-real, --evaluate-books, --server-route)")
@@ -1642,6 +1831,8 @@ def main() -> None:
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     p.add_argument("--out", default=None)
     args = p.parse_args()
+    if args.mesh and "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8").strip()
     data = os.path.join(ROOT, "tests", "data")
     suffix = {"float32": "f32", "bfloat16": "bf16"}[args.dtype]
     canvas = tuple(int(v) for v in args.canvas.split("x")) if args.canvas else None
@@ -1667,6 +1858,9 @@ def main() -> None:
     elif args.layouts:
         out = layouts()
         out_path = args.out or os.path.join(data, "layouts_jax_shapes.json")
+    elif args.harvest_witness:
+        out = harvest_witness()
+        out_path = args.out or os.path.join(data, "harvest_witness_jax_f32.json")
     elif args.threshold_witness:
         out = threshold_witness()
         out_path = args.out or os.path.join(data, "threshold_witness_jax_f32.json")
@@ -1697,6 +1891,20 @@ def main() -> None:
         if samples:
             out["samples_file"] = os.path.basename(out_path)[: -len(".json")] + ".npz"
             np.savez_compressed(os.path.join(os.path.dirname(out_path), out["samples_file"]), **samples)
+    elif args.harvest or args.pipeline:
+        import numpy as np
+
+        out, crops = harvest_run() if args.harvest else pipeline_run()
+        out_path = args.out or os.path.join(data, "harvest_jax_f32.json" if args.harvest else "pipeline_jax_f32.json")
+        out["crops_file"] = os.path.basename(out_path)[: -len(".json")] + "_crops.npz"
+        np.savez_compressed(os.path.join(os.path.dirname(out_path), out["crops_file"]), **crops)
+    elif args.mesh:
+        import numpy as np
+
+        out, samples = mesh_reference()
+        out_path = args.out or os.path.join(data, "mesh_jax_f32.json")
+        out["samples_file"] = os.path.basename(out_path)[: -len(".json")] + ".npz"
+        np.savez_compressed(os.path.join(os.path.dirname(out_path), out["samples_file"]), **samples)
     elif args.covers:
         out = covers_without_route()
         out_path = args.out or os.path.join(data, "covers_jax_f32_640x480.json")

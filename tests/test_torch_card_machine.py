@@ -29,7 +29,9 @@ cover. A seventh, with ``optax`` and ``orbax`` blocked too, imports every
 module of the port, checks that the synthetic generators, the training
 CLI's synthetic source and ``vlm_eval --synthetic`` raise naming Pillow,
 and runs the training CLI's recognizer loop on a recorded batch (save,
-resume, serve the checkpoint) and ``OCREngine.create()``. A last test reads
+resume, serve the checkpoint) and ``OCREngine.create()``. An eighth imports
+the data CLIs and ``parallel/``, checks that the book and page renderers
+raise naming Pillow, and harvests a cover without OpenCV. A last test reads
 the port's sources: none imports JAX, flax, optax, orbax or ``bbocr_tpu``.
 """
 
@@ -413,6 +415,55 @@ TRAIN_SCRIPT = TRAIN_BLOCKER + textwrap.dedent(
     """
 )
 
+DATA_SCRIPT = TRAIN_BLOCKER + textwrap.dedent(
+    """
+    import importlib
+    import json
+    import os
+    import pkgutil
+    import sys
+    import tempfile
+
+    import torch
+
+    torch.set_num_threads(2)
+    import bbocr_tpu_torch
+
+    imported = []
+    for info in pkgutil.walk_packages(bbocr_tpu_torch.__path__, "bbocr_tpu_torch."):
+        if not info.name.endswith("__main__"):
+            importlib.import_module(info.name)
+            imported.append(info.name)
+    from bbocr_tpu_torch.cli import harvest_real_crops, make_examples, make_pipeline_crops, smoke
+    from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
+    from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
+
+    refusals = {}
+    tmp = sys.argv[1]
+    for name, call in (
+        ("make_book", lambda: make_examples.make_book(tmp, 0, seed=0)),
+        ("make_examples", lambda: make_examples.main(["--out", tmp, "--count", "1"])),
+        ("smoke", lambda: smoke.main(["--device", "cpu"])),
+        ("make_pipeline_crops", lambda: make_pipeline_crops.main(["--pages", "1", "--out", tmp, "--device", "cpu"])),
+    ):
+        try:
+            call()
+            refusals[name] = None
+        except ImportError as e:
+            refusals[name] = str(e)
+    config = EngineConfig(canvases=(CanvasSpec(416, 320),), compute_dtype=torch.float32)
+    engine = OCREngine.from_checkpoint("checkpoints/craft.npz", "checkpoints/crnn.npz", config, device="cpu")
+    out = os.path.join(tmp, "crops")
+    stats = harvest_real_crops.harvest_corpus(engine, out, books_filter="covers/book2")
+    with open(os.path.join(out, "labels.json")) as f:
+        labels = json.load(f)
+    loaded = sorted({m.split(".")[0] for m in sys.modules} & BLOCKED)
+    print(json.dumps({"loaded": loaded, "imported": imported, "refusals": refusals, "stats": stats,
+                      "labels": len(labels), "files": sorted(os.listdir(out)), "version": bbocr_tpu_torch.__version__}))
+    """
+)
+
+
 def _run_blocked(script, *args):
     env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BB_OCR_BATCHING")}
     env["PYTHONPATH"] = ROOT
@@ -572,3 +623,20 @@ def test_port_sources_import_nothing_of_jax():
                 [node.module or ""] if isinstance(node, ast.ImportFrom) and not node.level else [])
             found += [(os.path.relpath(path, ROOT), n) for n in names if n.split(".")[0] in banned]
     assert len(paths) > 80 and found == []
+
+
+def test_data_clis_run_without_jax_pillow_or_cv2(tmp_path):
+    """Every module imports with JAX, Pillow and OpenCV blocked (the
+    parallel package and the data CLIs among them); ``make_examples``,
+    ``smoke`` without ``--books-dir`` and ``make_pipeline_crops`` raise
+    ``ImportError`` naming Pillow; the harvest reads ``covers/book2`` (the
+    port's gray read, its PNG writer) and keeps crops."""
+    out = _run_blocked(DATA_SCRIPT, str(tmp_path))
+    assert out["loaded"] == []
+    assert {"bbocr_tpu_torch.cli.harvest_real_crops", "bbocr_tpu_torch.cli.make_examples",
+            "bbocr_tpu_torch.cli.make_pipeline_crops", "bbocr_tpu_torch.parallel.mesh",
+            "bbocr_tpu_torch.parallel.sharding", "bbocr_tpu_torch.parallel.collectives",
+            "bbocr_tpu_torch.version"} <= set(out["imported"])
+    assert all(why is not None and "Pillow" in why for why in out["refusals"].values()), out["refusals"]
+    assert out["stats"]["books"] == 1 and out["stats"]["crops_kept"] == out["labels"] > 0
+    assert len(out["files"]) == out["labels"] + 1 and out["version"] == "0.1.0"

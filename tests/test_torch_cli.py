@@ -1,7 +1,8 @@
 """The port's host CLIs against their JAX counterparts.
 
 ``batch`` (serial with one shared extractor, and a pool of 2 workers) over
-two books, ``smoke --books-dir``, ``process_book --llm-backend ollama``
+two books, ``smoke`` with ``--books-dir`` and rendering its own book,
+``process_book --llm-backend ollama``
 with a patched HTTP session, and ``compare_ocr`` on one photo: each writes
 or prints what the JAX CLI does on the same input, timings aside. A
 deterministic stub engine stands in for the shared CRAFT + CRNN engine of
@@ -136,8 +137,18 @@ def test_smoke_books_dir_matches_jax(stub_engines, tmp_path, monkeypatch, capsys
     assert got.splitlines()[-1] == ref.splitlines()[-1] == "SMOKE PASS"
     assert [ln for ln in got.splitlines() if not ln.startswith("book ")] == \
         [ln for ln in ref.splitlines() if not ln.startswith("book ")]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        smoke.main(["--device", "cpu"])
+    # without --books-dir both render the same synthetic book (make_book,
+    # seed 42; tests/test_torch_data_clis.py holds its bytes), whose
+    # preprocessed pixels differ by the chain's known bicubic roundings: the
+    # stub's texts carry a pixel sum, so the fields are compared, not values
+    monkeypatch.setattr(sys, "argv", ["smoke"])
+    assert jax_smoke.main() == 0
+    ref = capsys.readouterr().out
+    assert smoke.main(["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got.splitlines()[-1] == ref.splitlines()[-1] == "SMOKE PASS"
+    assert [ln.split(":")[0] for ln in got.splitlines() if not ln.startswith(("book ", "rendered "))] == \
+        [ln.split(":")[0] for ln in ref.splitlines() if not ln.startswith(("book ", "rendered "))]
 
 
 def test_process_book_ollama_matches_jax(stub_engines, tmp_path, monkeypatch):

@@ -398,7 +398,8 @@ def test_joint_step_runs_and_matches_jax_losses():
                                      jb["label_lens"], jb["frame_lens"])
     assert float(metrics["loss_det"]) == pytest.approx(float(want_det), rel=1e-5)
     assert float(metrics["loss_rec"]) == pytest.approx(float(want_rec), rel=1e-5)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh without the state example is refused as in JAX (tests/test_torch_parallel.py runs meshes)
+    with pytest.raises(ValueError, match="state_example is required when sharding over a mesh"):
         trainer.make_joint_train_step(craft, crnn, tx, mesh=object())
 
 
@@ -453,8 +454,18 @@ def test_create_train_state_and_engine_create():
     engine = OCREngine.create(seed=1, config=EngineConfig(compute_dtype=torch.float32), device="cpu")
     sd = engine.crnn.state_dict()
     assert all(torch.equal(sd[k], v) for k, v in state.crnn_params.items())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        OCREngine.create(mesh=object(), device="cpu")
+    # create(mesh=) builds the mesh engine: on a 1x1 mesh, the same parameters
+    import torch.distributed as dist
+
+    from bbocr_tpu_torch.parallel.mesh import single_device_mesh
+
+    mesh = single_device_mesh("cpu")
+    try:
+        meshed = OCREngine.create(seed=1, config=EngineConfig(compute_dtype=torch.float32), mesh=mesh, device="cpu")
+        assert meshed.mesh is mesh and meshed.device == torch.device("cpu")
+        assert all(torch.equal(meshed.crnn.state_dict()[k], v) for k, v in sd.items())
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("path", ["craft.npz", "candidates/craft_lite_raw.npz", "crnn.npz", "vlm.npz", "small_vlm"])
