@@ -1,0 +1,6 @@
+"""The checkout's root on the path, for ``portbench`` and the program."""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
