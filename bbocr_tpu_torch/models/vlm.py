@@ -45,6 +45,8 @@ import torch
 from torch import nn
 
 from bbocr_tpu_torch.models.charset import EN_CHARSET
+from bbocr_tpu_torch.utils import profiling
+from bbocr_tpu_torch.utils.profiling import span
 
 # Token vocabulary: JSON is emitted as characters; specials sit above the
 # charset ids (0 = CTC blank / PAD here too, so charset ids align).
@@ -311,16 +313,21 @@ def greedy_generate(model: PageReader, page: torch.Tensor, max_len: int = MAX_JS
     slot 0 and PAD elsewhere; at each of the ``max_len - 1`` steps the whole
     buffer goes through ``decode``, ``argmax`` of ``logits[:, t]`` (the
     first index wins ties) fills slot ``t + 1``, and a row that holds EOS
-    keeps emitting EOS. No host sync inside the loop."""
-    ctx = model.encode(page)
-    b = page.shape[0]
-    tokens = torch.full((b, max_len), PAD_ID, dtype=torch.int64, device=page.device)
-    tokens[:, 0] = BOS_ID
-    eos = torch.full((), EOS_ID, dtype=torch.int64, device=page.device)
-    for t in range(max_len - 1):
-        logits = model.decode(ctx, tokens)
-        nxt = torch.argmax(logits[:, t, :], dim=-1)
-        # after EOS, keep emitting EOS (stable decode)
-        prev_done = torch.any(tokens == EOS_ID, dim=1)
-        tokens[:, t + 1] = torch.where(prev_done, eos, nxt)
+    keeps emitting EOS. No host sync inside the loop. Spans (when
+    recording, ``utils/profiling.py``): ``vlm.generate`` for the call, a
+    batch of its own, with ``vlm.encode`` and one ``vlm.step`` a step."""
+    with profiling.batch(), span("vlm.generate", pages=page.shape[0]):
+        with span("vlm.encode"):
+            ctx = model.encode(page)
+        b = page.shape[0]
+        tokens = torch.full((b, max_len), PAD_ID, dtype=torch.int64, device=page.device)
+        tokens[:, 0] = BOS_ID
+        eos = torch.full((), EOS_ID, dtype=torch.int64, device=page.device)
+        for t in range(max_len - 1):
+            with span("vlm.step", step=t):
+                logits = model.decode(ctx, tokens)
+                nxt = torch.argmax(logits[:, t, :], dim=-1)
+                # after EOS, keep emitting EOS (stable decode)
+                prev_done = torch.any(tokens == EOS_ID, dim=1)
+                tokens[:, t + 1] = torch.where(prev_done, eos, nxt)
     return tokens

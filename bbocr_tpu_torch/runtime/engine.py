@@ -84,7 +84,8 @@ from bbocr_tpu_torch.runtime.fastpath import fast_readtext_program
 from bbocr_tpu_torch.runtime.rectify import quad_to_rect_homography, warp_crops
 from bbocr_tpu_torch.runtime.wire import host_warp_crop, pack_canvas, unpack_widen
 from bbocr_tpu_torch.utils.checkpoint import load_params
-from bbocr_tpu_torch.utils.profiling import StageTimer
+from bbocr_tpu_torch.utils import profiling
+from bbocr_tpu_torch.utils.profiling import StageTimer, span
 
 _INV_127_5 = float(np.float32(1.0 / 127.5))
 
@@ -276,14 +277,18 @@ class OCREngine:
         """(N, 32, W) crops in [0, 255] -> (ids, lens, conf). When some valid
         crop reads below ``contrast_ths``, the batch is re-read
         contrast-stretched and the better read kept per crop."""
-        ids, lens, conf = self._decode(crops, lengths)
+        with span("crnn", reread=False):
+            ids, lens, conf = self._decode(crops, lengths)
         ths = self.config.contrast_ths
         if ths <= 0:
             return ids, lens, conf
         worst = torch.where(valid, conf, torch.ones_like(conf)).min()
-        if not bool(worst < ths):
+        with span("download", check="reread"):  # waits for the read above
+            low = bool(worst < ths)
+        if not low:
             return ids, lens, conf
-        ids2, lens2, conf2 = self._decode(_contrast_stretch(crops), lengths)
+        with span("crnn", reread=True):
+            ids2, lens2, conf2 = self._decode(_contrast_stretch(crops), lengths)
         better = (conf2 > conf) & (conf < ths) & valid
         return (
             torch.where(better[:, None], ids2, ids),
@@ -315,7 +320,7 @@ class OCREngine:
         """Batched OCR over a list of grayscale/RGB uint8-or-float images."""
         if not images:
             return []
-        with self._lock:
+        with self._lock, profiling.batch():
             ctx = self._stage_detect(images)
             self._stage_boxes_recognize(ctx)
             return self._stage_collect(ctx)
@@ -354,12 +359,17 @@ class OCREngine:
             err: List[BaseException] = []
             stop = threading.Event()
 
+            # a batch travels with its sequence number, which the spans of
+            # all three threads carry
             def t_detect():
                 try:
                     for imgs in batches:
                         if stop.is_set():
                             break
-                        q_mid.put(self._stage_detect(imgs) if imgs else None)
+                        with profiling.batch() as number:
+                            ctx = self._stage_detect(imgs) if imgs else None
+                            with span("stream.wait", queue="q_mid", op="put"):
+                                q_mid.put((number, ctx))
                 except BaseException as e:  # raised in the consumer
                     err.append(e)
                 finally:
@@ -368,19 +378,23 @@ class OCREngine:
             def t_mid():
                 try:
                     while True:
-                        ctx = q_mid.get()
-                        if ctx is _STREAM_END:
+                        with span("stream.wait", queue="q_mid", op="get"):
+                            item = q_mid.get()
+                        if item is _STREAM_END:
                             break
                         if stop.is_set():
                             continue  # stopped: let the detect stage run out
-                        try:
-                            if ctx is not None:
-                                self._stage_boxes_recognize(ctx)
-                        except BaseException as e:
-                            err.append(e)
-                            stop.set()
-                            continue
-                        q_out.put(ctx)
+                        number, ctx = item
+                        with profiling.batch(number):
+                            try:
+                                if ctx is not None:
+                                    self._stage_boxes_recognize(ctx)
+                            except BaseException as e:
+                                err.append(e)
+                                stop.set()
+                                continue
+                            with span("stream.wait", queue="q_out", op="put"):
+                                q_out.put(item)
                 finally:
                     q_out.put(_STREAM_END)
 
@@ -389,10 +403,14 @@ class OCREngine:
                 t.start()
             try:
                 while True:
-                    ctx = q_out.get()
-                    if ctx is _STREAM_END:
+                    with span("stream.wait", queue="q_out", op="get"):
+                        item = q_out.get()
+                    if item is _STREAM_END:
                         break
-                    yield [] if ctx is None else self._stage_collect(ctx)
+                    number, ctx = item
+                    with profiling.batch(number):  # closed before the yield
+                        res = [] if ctx is None else self._stage_collect(ctx)
+                    yield res
             finally:
                 stop.set()
                 while any(t.is_alive() for t in threads):
@@ -471,7 +489,9 @@ class OCREngine:
                         canvas_pos[i] = (key, slot)
 
                     _host_map(fill, list(enumerate(idxs)))
-                    raw = torch.from_numpy(pack_canvas(batch, cfg.wire_bits)).to(self.device)
+                    packed = torch.from_numpy(pack_canvas(batch, cfg.wire_bits))
+                    with span("upload"):
+                        raw = packed.to(self.device)
                     rows = bucketing.pad_count(len(idxs), _ROW_MENU)
                     rows = -(-rows // self._dp) * self._dp  # dp-divisible under a mesh
                     if rows > raw.shape[0]:
@@ -483,7 +503,7 @@ class OCREngine:
                     if cfg.detect_pool > 1 and canvas.height * canvas.width >= cfg.detect_pool_min_area
                     else 1
                 )
-                with self.timers.stage("detect"):
+                with self.timers.stage("detect"), span("craft"):
                     masks, regions = self._dp_rows(lambda g: self.detect(g, pool), dev)
                     coarse = None
                     if cfg.detect_coarse > 1 and pool == 1:
@@ -510,7 +530,7 @@ class OCREngine:
             return [q * (2.0 * pool) for q in qs]
 
         for idxs, masks_dev, regions_dev, pool, coarse in ctx["pending"]:
-            with self.timers.stage("detect"):
+            with self.timers.stage("detect"), span("download"):
                 masks = masks_dev.cpu().numpy()
                 regions_q = regions_dev.cpu().numpy()
                 if coarse is not None:
@@ -552,7 +572,9 @@ class OCREngine:
 
                 with self.timers.stage("rectify"):
                     _host_map(warp, list(enumerate(entries)))
-                    all_crops = torch.from_numpy(crop_buf).to(self.device).to(torch.float32)
+                    with span("upload"):
+                        all_crops = torch.from_numpy(crop_buf).to(self.device)
+                    all_crops = all_crops.to(torch.float32)
                 dispatched.append(self._recognize_dispatch(entries, list(range(len(entries))), all_crops, cap))
                 continue
             by_canvas: Dict[Tuple[CanvasSpec, int], List[int]] = {}
@@ -572,13 +594,9 @@ class OCREngine:
                     img_idx[k] = ctx["canvas_pos"][i][1]
                     true_ws[k] = true_w
                 with self.timers.stage("rectify"):
-                    crops = warp_crops(
-                        ctx["canvas_batches"][src_key],
-                        torch.from_numpy(homos).to(self.device),
-                        torch.from_numpy(img_idx).to(self.device),
-                        torch.from_numpy(true_ws).to(self.device),
-                        bucket_w,
-                    )[: len(e_idxs)]
+                    with span("upload"):
+                        homos, img_idx, true_ws = (torch.from_numpy(a).to(self.device) for a in (homos, img_idx, true_ws))
+                    crops = warp_crops(ctx["canvas_batches"][src_key], homos, img_idx, true_ws, bucket_w)[: len(e_idxs)]
                 crop_arrays.append(crops)
                 order.extend(e_idxs)
             all_crops = torch.cat(crop_arrays) if len(crop_arrays) > 1 else crop_arrays[0]
@@ -598,19 +616,17 @@ class OCREngine:
         valid = np.zeros(cap, bool)
         valid[: len(order)] = True
         with self.timers.stage("recognize"):
-            ids, lens, conf = self._dp_rows(
-                self.recognize,
-                all_crops,
-                torch.from_numpy(np.maximum(lengths, 1)).to(self.device),
-                torch.from_numpy(valid).to(self.device),
-            )
+            with span("upload"):
+                lengths = torch.from_numpy(np.maximum(lengths, 1)).to(self.device)
+                valid = torch.from_numpy(valid).to(self.device)
+            ids, lens, conf = self._dp_rows(self.recognize, all_crops, lengths, valid)
         return entries, order, ids, lens, conf
 
     def _stage_collect(self, ctx: Dict[str, Any]) -> List[List[Tuple[np.ndarray, str, float]]]:
         cfg = self.config
         texts: Dict[Tuple[int, int], Tuple[str, float]] = {}
         for entries, order, ids, lens, conf in ctx["dispatched"]:
-            with self.timers.stage("recognize"):
+            with self.timers.stage("recognize"), span("download"):
                 ids = ids.cpu().numpy()
                 lens = lens.cpu().numpy()
                 conf = conf.cpu().numpy()
@@ -645,9 +661,12 @@ class OCREngine:
         batch[0, :oh, :ow] = _host_resize(arr, oh, ow)
         packed = pack_canvas(batch, cfg.wire_bits)
         with self._lock, self.timers.stage("fast"):
-            gray = unpack_widen(torch.from_numpy(packed).to(self.device), cfg.wire_bits)
+            with span("upload"):
+                raw = torch.from_numpy(packed).to(self.device)
+            gray = unpack_widen(raw, cfg.wire_bits)
             out = fast_readtext_program(self, gray, cfg.fast_max_boxes, cfg.fast_bucket_w)
-            boxes, ids, lens, conf, valid = (a.cpu().numpy() for a in out)
+            with span("download"):
+                boxes, ids, lens, conf, valid = (a.cpu().numpy() for a in out)
 
         quads, entries = [], []
         for i in range(len(valid)):

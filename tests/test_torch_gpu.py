@@ -9,6 +9,7 @@ The file imports nothing of JAX, so it runs on a machine without it:
 """
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -202,3 +203,57 @@ def test_cuda_autocrop_and_wire_match_cpu(cuda_device):
     x = torch.from_numpy(canvas.astype(np.float32))
     pooled = x.to(cuda_device).reshape(2, 16, 4, 24, 4).mean((2, 4)).cpu()
     assert torch.equal(pooled, x.reshape(2, 16, 4, 24, 4).mean((2, 4)))
+
+
+def test_span_brackets_the_device_work_it_launches(cuda_device):
+    """In a CUDA-only profiler session (the benchmark's) spans are recorded;
+    a span around ``torch.cuda._sleep`` and ``synchronize()`` brackets the
+    sleep kernel's device interval and the runtime call that launched it,
+    whose thread is the span's (CUPTI's id: the low 32 bits of
+    ``threading.get_ident()``); ``SpanTrace`` puts every launch of the
+    window down to the span."""
+    from bbocr_tpu_torch.utils.profiling import recording, span, take_spans
+    from portbench.core import spans
+    from portbench.core.launches import SpanTrace
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    take_spans()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        assert recording()
+        with span("sleep") as sp:
+            torch.cuda._sleep(10_000_000)
+            torch.cuda.synchronize()
+    kept = take_spans()
+    events = list(prof.profiler.kineto_results.events())
+    (k,) = [e for e in events if "spin_kernel" in e.name()]
+    calls = [e for e in events if e.device_type() != k.device_type() and e.correlation_id() == k.correlation_id()
+             and e.name().startswith("cu")]  # not the profiler's own events
+    k_end = k.start_ns() + k.duration_ns()
+    print(f"\nspan offsets: the launch calls {[(e.name(), (e.start_ns() - sp.start_ns) / 1e3) for e in calls]} us "
+          f"after the span opens, the kernel {(k.start_ns() - sp.start_ns) / 1e3:.1f} us after, ends "
+          f"{(sp.end_ns - k_end) / 1e3:.1f} us before it closes ({k.duration_ns() / 1e6:.3f} ms); CUPTI threads "
+          f"{[e.device_resource_id() & 0xFFFFFFFF for e in calls]}, the span's {spans.thread_key(sp.ident)}; "
+          f"start_thread_id {[e.start_thread_id() for e in calls]}")
+    assert kept == [sp] and calls
+    assert all(sp.start_ns <= e.start_ns() <= k.start_ns() for e in calls) and k_end <= sp.end_ns
+    assert spans.thread_key(sp.ident) in {e.device_resource_id() & 0xFFFFFFFF for e in calls}
+    def work():
+        with span("sleep"):
+            torch.cuda._sleep(1_000_000)
+            out.append(torch.ones(1024, device=cuda_device).cpu())
+
+    out = []
+    with SpanTrace() as t:  # on the calling thread and on one started inside the session
+        work()
+        worker = threading.Thread(target=work)
+        worker.start()
+        worker.join(timeout=60)
+    tr = t.summary
+    print(f"two threads: {len(tr.launches)} launches, threads {sorted({ln.thread for ln in tr.launches})}, spans on "
+          f"{sorted((spans.thread_key(s.ident), s.tid) for s in tr.spans)}; {spans.coverage(tr)}")
+    assert len(tr.spans) == 2 and {s.tid for s in tr.spans} == {threading.get_native_id(), worker.native_id}
+    assert len(tr.launches) >= 6 and [float(x.sum()) for x in out] == [1024.0, 1024.0]
+    owners = spans.innermost(tr.spans, tr.launches)
+    assert all(s is not None for s in owners) and {s.tid for s in owners} == {s.tid for s in tr.spans}
+    assert spans.coverage(tr)["inside_s"] == pytest.approx(tr.busy_s)
