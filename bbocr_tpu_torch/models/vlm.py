@@ -3,9 +3,11 @@
 Counterpart of ``bbocr_tpu/models/vlm.py``: a patch-embedding encoder (an
 8x8/8 patch conv on a gray page, fixed 2-D sin/cos positions, pre-norm
 transformer blocks) and a causal decoder with cross-attention that emits
-the metadata JSON character by character. ``greedy_generate`` is the JAX
-``lax.scan``: the whole static token buffer goes through the decoder at
-every step, with no KV cache and no early stop.
+the metadata JSON character by character. ``greedy_generate`` gives the
+tokens of the JAX ``lax.scan``, which sends the whole static token buffer
+through the decoder at every step with no early stop; here each step
+decodes one position against a static cache of the earlier ones
+(``DecodeState``), replayed as a CUDA graph on a card.
 
 The parameters stay float32, as flax keeps them, and every layer computes
 in the module's ``dtype`` the way flax 0.12 computes with ``dtype`` set:
@@ -38,11 +40,14 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Optional, Tuple
+import threading
+import weakref
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_leaves, tree_map
 
 from bbocr_tpu_torch.models.charset import EN_CHARSET
 from bbocr_tpu_torch.utils import profiling
@@ -121,9 +126,18 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     """flax ``Dense`` with ``dtype``: the product of the input and the kernel,
     both cast to ``dtype``, summed in float32 and rounded to ``dtype``, plus
     the bias cast to ``dtype``."""
-    w = layer.weight.to(dtype).float()
+    return _dense(x, *_cast_linear(layer, dtype), dtype)
+
+
+def _cast_linear(layer: nn.Linear, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's kernel and bias as ``dense`` reads them: the kernel rounded
+    to ``dtype`` and held in float32, the bias in ``dtype``."""
+    return layer.weight.to(dtype).float(), layer.bias.to(dtype)
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     y = torch.matmul(x.to(dtype).float(), w.t()).to(dtype)
-    return y + layer.bias.to(dtype)
+    return y + b
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -145,12 +159,31 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        mean2 = (xf * xf).mean(dim=-1, keepdim=True)
-        var = torch.clamp(mean2 - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + LAYERNORM_EPS) * self.weight
-        return ((xf - mean) * mul + self.bias).to(dtype)
+        return _layer_norm(x, self.weight, self.bias, dtype)
+
+
+def _layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    mean2 = (xf * xf).mean(dim=-1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + LAYERNORM_EPS) * weight
+    return ((xf - mean) * mul + bias).to(dtype)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: Optional[torch.Tensor], dtype) -> torch.Tensor:
+    """flax ``dot_product_attention`` after the query's scaling: ``q`` (b, h,
+    t, hd) in ``dtype``; ``k`` (b, h, hd, s) and ``v`` (b, h, s, hd) in
+    float32, holding values rounded to ``dtype``; ``mask`` broadcasts to (b,
+    h, t, s). Returns (b, h, t, hd) in ``dtype``."""
+    # 'bqhd,bkhd->bhqk', rounded to dtype
+    w = torch.matmul(q.float(), k).to(dtype)
+    if mask is not None:
+        w = torch.where(mask, w, _const(torch.finfo(dtype).min, dtype, w.device))
+    e = torch.exp(w - w.amax(dim=-1, keepdim=True))
+    p = e / e.float().sum(dim=-1, keepdim=True).to(dtype)
+    # 'bhqk,bkhd->bqhd', rounded to dtype
+    return torch.matmul(p.float(), v).to(dtype)
 
 
 class Attention(nn.Module):
@@ -175,14 +208,7 @@ class Attention(nn.Module):
         k = dense(xkv, self.key, dtype).reshape(b, s, self.heads, hd)
         v = dense(xkv, self.value, dtype).reshape(b, s, self.heads, hd)
         q = q / _const(math.sqrt(hd), dtype, q.device)
-        # 'bqhd,bkhd->bhqk', rounded to dtype
-        w = torch.matmul(q.float().permute(0, 2, 1, 3), k.float().permute(0, 2, 3, 1)).to(dtype)
-        if mask is not None:
-            w = torch.where(mask, w, _const(torch.finfo(dtype).min, dtype, w.device))
-        e = torch.exp(w - w.amax(dim=-1, keepdim=True))
-        p = e / e.float().sum(dim=-1, keepdim=True).to(dtype)
-        # 'bhqk,bkhd->bqhd', rounded to dtype
-        o = torch.matmul(p.float(), v.float().permute(0, 2, 1, 3)).to(dtype)
+        o = _attend(q.permute(0, 2, 1, 3), k.float().permute(0, 2, 3, 1), v.float().permute(0, 2, 1, 3), mask, dtype)
         return dense(o.permute(0, 2, 1, 3).reshape(b, t, d), self.out, dtype)
 
 
@@ -307,27 +333,182 @@ class PageReader(nn.Module):
         return self.decode(self.encode(page), tokens)
 
 
+class DecodeState:
+    """Greedy decoding one position a step, over static buffers for one
+    (model, batch, page tokens, ``max_len``, device).
+
+    ``load`` fills the buffers for a call: each decoder parameter cast as
+    its layer reads it, the cross-attention keys and values of ``ctx`` in
+    every block, zeroed self-attention caches of ``max_len`` slots a
+    block, BOS in slot 0 and PAD elsewhere, and the step index 0 (a device
+    tensor). ``step`` then decodes position ``t``: it embeds token ``t`` at
+    position ``t``, writes that position's self-attention key and value
+    into slot ``t`` of its block's cache, attends over all ``max_len``
+    slots with the mask ``slot <= t`` (the same ``where``, max, exp and
+    float32 sum over every slot as ``Attention.forward``), puts the float32
+    logits of the position in ``logits``, writes their argmax (the first
+    index wins ties) into slot ``t + 1`` of ``tokens``, or EOS where the
+    row already holds one, and moves the index on. Every value a step
+    computes is the one that row ``t`` of ``PageReader.decode`` computes
+    from the same tokens, rounded where that rounds; only the products'
+    float32 sums may run in another order, as the GEMMs differ in shape.
+
+    ``capture`` records one ``step`` as a CUDA graph (``graph``), each
+    replay of which is a step: it reads and writes only these buffers, with
+    no host sync. ``lock`` guards the buffers through a call.
+    """
+
+    def __init__(self, model: PageReader, batch: int, ctx_len: int, max_len: int, device: torch.device):
+        dt = model.dtype
+        d, heads = model.dim, model.blocks[0].attns[0].heads
+        self.dtype, self.heads = dt, heads
+        self.weights = tree_map(torch.clone, _cast_decoder(model))
+        # keys and values rounded to dt, held in float32 as the products read them
+        self.cross = [torch.empty(2, batch, heads, ctx_len, d // heads, device=device) for _ in model.blocks]
+        self.cache = [torch.empty(2, batch, heads, max_len, d // heads, device=device) for _ in model.blocks]
+        self.tokens = torch.empty(batch, max_len, dtype=torch.int64, device=device)
+        self.logits = torch.empty(batch, model.vocab, device=device)
+        self.t = torch.zeros((), dtype=torch.int64, device=device)
+        self.slots = torch.arange(max_len, device=device)
+        self.eos = torch.full((), EOS_ID, dtype=torch.int64, device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.lock = threading.Lock()
+
+    def _heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(b, t, d) -> (b, heads, t, d / heads)."""
+        b, t, d = x.shape
+        return x.reshape(b, t, self.heads, d // self.heads).permute(0, 2, 1, 3)
+
+    def load(self, model: PageReader, ctx: torch.Tensor) -> None:
+        dt = self.dtype
+        torch._foreach_copy_(tree_leaves(self.weights), tree_leaves(_cast_decoder(model)))
+        for blk, cross in zip(self.weights["blocks"], self.cross):
+            _, key, value, _ = blk["attns"][1]
+            cross[0].copy_(self._heads(_dense(ctx, *key, dt)))
+            cross[1].copy_(self._heads(_dense(ctx, *value, dt)))
+        for cache in self.cache:
+            cache.zero_()
+        self.tokens.fill_(PAD_ID)
+        self.tokens[:, 0] = BOS_ID
+        self.t.zero_()
+
+    def step(self) -> None:
+        dt, w = self.dtype, self.weights
+        b = self.tokens.shape[0]
+        at = self.t.view(1)
+        x = w["tok"][self.tokens.index_select(1, at)] + w["pos"].index_select(0, at)[None]
+        causal = self.slots <= self.t
+        scale = _const(math.sqrt(x.shape[-1] // self.heads), dt, x.device)
+        for blk, cache, (ck, cv) in zip(w["blocks"], self.cache, self.cross):
+            (query, key, value, out), (cquery, _, _, cout) = blk["attns"]
+            h = _layer_norm(x, *blk["norms"][0], dt)
+            cache[0].index_copy_(2, at, self._heads(_dense(h, *key, dt)).float())
+            cache[1].index_copy_(2, at, self._heads(_dense(h, *value, dt)).float())
+            o = _attend(self._heads(_dense(h, *query, dt)) / scale, cache[0].transpose(2, 3), cache[1], causal, dt)
+            x = x + _dense(o.permute(0, 2, 1, 3).reshape(b, 1, -1), *out, dt)
+            h = _layer_norm(x, *blk["norms"][1], dt)
+            o = _attend(self._heads(_dense(h, *cquery, dt)) / scale, ck.transpose(2, 3), cv, None, dt)
+            x = x + _dense(o.permute(0, 2, 1, 3).reshape(b, 1, -1), *cout, dt)
+            h = _layer_norm(x, *blk["norms"][2], dt)
+            x = x + _dense(gelu_tanh(_dense(h, *blk["fc1"], dt)), *blk["fc2"], dt)
+        self.logits.copy_(_dense(_layer_norm(x, *w["out_norm"], dt).float(), *w["head"], torch.float32)[:, 0])
+        nxt = torch.argmax(self.logits, dim=-1)
+        # after EOS, keep emitting EOS (stable decode)
+        done = torch.any(self.tokens == EOS_ID, dim=1)
+        self.tokens.index_copy_(1, at + 1, torch.where(done, self.eos, nxt)[:, None])
+        self.t += 1
+
+    def capture(self) -> None:
+        """Record one ``step`` as a CUDA graph, after one eager step on a
+        side stream (the lazy set-up of cuBLAS and of ``_const`` stays out of
+        the capture). The capture runs on that stream, which lies on the
+        buffers' device whatever device is current: ``torch.cuda.graph``'s
+        own stream lies on the device current at its first use, and a step
+        launched on another device's stream would leave the graph empty.
+        The buffers then hold that step: ``load`` before replaying. Errors
+        are raised only by this thread's calls (``thread_local``): other
+        threads may launch work while it captures, though PyTorch refuses
+        them a draw from the card's random generator meanwhile."""
+        side = torch.cuda.Stream(self.t.device)
+        side.wait_stream(torch.cuda.current_stream(self.t.device))
+        with torch.cuda.stream(side):
+            self.step()
+        torch.cuda.current_stream(self.t.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            self.step()
+        self.graph = graph
+
+
+def _cast_decoder(model: PageReader) -> Dict[str, Any]:
+    """The decoder's parameters as its layers read them, cast once: the
+    embeddings in the compute type, each ``dense`` layer's kernel and bias
+    (``_cast_linear``; the head's in float32), the LayerNorms' as they are."""
+    dt = model.dtype
+    return {
+        "tok": model.tok_embed.weight.to(dt),
+        "pos": model.pos_embed.weight.to(dt),
+        "blocks": [
+            {
+                "norms": [(n.weight, n.bias) for n in blk.norms],
+                "attns": [[_cast_linear(lin, dt) for lin in (a.query, a.key, a.value, a.out)] for a in blk.attns],
+                "fc1": _cast_linear(blk.fc1, dt),
+                "fc2": _cast_linear(blk.fc2, dt),
+            }
+            for blk in model.blocks
+        ],
+        "out_norm": (model.out_norm.weight, model.out_norm.bias),
+        "head": _cast_linear(model.head, torch.float32),
+    }
+
+
+# model -> {(batch, page tokens, max_len, dtype, device): DecodeState}; weak,
+# so a dropped model frees its buffers and graphs, and no graph rides along
+# when a model is copied or pickled
+_STATES: "weakref.WeakKeyDictionary[PageReader, Dict[tuple, DecodeState]]" = weakref.WeakKeyDictionary()
+_STATES_LOCK = threading.Lock()
+
+
+def _graphed_state(model: PageReader, ctx: torch.Tensor, max_len: int) -> DecodeState:
+    key = (ctx.shape[0], ctx.shape[1], max_len, model.dtype, ctx.device)
+    with _STATES_LOCK:
+        states = _STATES.setdefault(model, {})
+        if key not in states:
+            states[key] = DecodeState(model, ctx.shape[0], ctx.shape[1], max_len, ctx.device)
+        return states[key]
+
+
 @torch.no_grad()
 def greedy_generate(model: PageReader, page: torch.Tensor, max_len: int = MAX_JSON_LEN) -> torch.Tensor:
-    """Greedy page -> (B, max_len) token ids, as the JAX ``lax.scan``: BOS in
-    slot 0 and PAD elsewhere; at each of the ``max_len - 1`` steps the whole
-    buffer goes through ``decode``, ``argmax`` of ``logits[:, t]`` (the
-    first index wins ties) fills slot ``t + 1``, and a row that holds EOS
-    keeps emitting EOS. No host sync inside the loop. Spans (when
-    recording, ``utils/profiling.py``): ``vlm.generate`` for the call, a
-    batch of its own, with ``vlm.encode`` and one ``vlm.step`` a step."""
+    """Greedy page -> (B, max_len) token ids, those of the JAX ``lax.scan``:
+    BOS in slot 0 and PAD elsewhere; at each of the ``max_len - 1`` steps
+    ``argmax`` of position ``t``'s logits (the first index wins ties) fills
+    slot ``t + 1``, and a row that holds EOS keeps emitting EOS. Each step
+    is one ``DecodeState.step``; on a CUDA device, one replay of its graph,
+    captured at the first call for the model, batch, page size, ``max_len``,
+    type and device, with the parameters and the page loaded afresh at every
+    call. No host sync inside the loop. Spans (when recording,
+    ``utils/profiling.py``): ``vlm.generate`` for the call, a batch of its
+    own, with ``vlm.encode`` and one ``vlm.step`` a step (``graph``: the step
+    replayed a graph)."""
     with profiling.batch(), span("vlm.generate", pages=page.shape[0]):
         with span("vlm.encode"):
             ctx = model.encode(page)
-        b = page.shape[0]
-        tokens = torch.full((b, max_len), PAD_ID, dtype=torch.int64, device=page.device)
-        tokens[:, 0] = BOS_ID
-        eos = torch.full((), EOS_ID, dtype=torch.int64, device=page.device)
-        for t in range(max_len - 1):
-            with span("vlm.step", step=t):
-                logits = model.decode(ctx, tokens)
-                nxt = torch.argmax(logits[:, t, :], dim=-1)
-                # after EOS, keep emitting EOS (stable decode)
-                prev_done = torch.any(tokens == EOS_ID, dim=1)
-                tokens[:, t + 1] = torch.where(prev_done, eos, nxt)
-    return tokens
+        graphed = page.device.type == "cuda"
+        if graphed:
+            state = _graphed_state(model, ctx, max_len)
+        else:
+            state = DecodeState(model, ctx.shape[0], ctx.shape[1], max_len, ctx.device)
+        with state.lock:
+            state.load(model, ctx)
+            if graphed and state.graph is None:
+                state.capture()
+                state.load(model, ctx)
+            replay = state.graph is not None
+            for t in range(max_len - 1):
+                with span("vlm.step", step=t, graph=replay):
+                    if replay:
+                        state.graph.replay()
+                    else:
+                        state.step()
+            return state.tokens.clone()

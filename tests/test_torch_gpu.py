@@ -1,6 +1,7 @@
-"""The port's CUDA kernels against their plain versions, and its device
-paths (beam, labels, stream, batcher, auto-crop, wire) against the CPU, on
-a card.
+"""The port's CUDA kernels against their plain versions, its device paths
+(beam, labels, stream, batcher, auto-crop, wire) against the CPU, and the
+PageReader's graphed greedy decode against its eager cached step and the
+full-buffer loop, on a card.
 
 Every test here is marked ``gpu`` and skips where no CUDA card is present.
 The file imports nothing of JAX, so it runs on a machine without it:
@@ -8,6 +9,7 @@ The file imports nothing of JAX, so it runs on a machine without it:
     python -m pytest tests/test_torch_gpu.py -m gpu -q --noconftest -p no:cacheprovider
 """
 
+import json
 import os
 import threading
 
@@ -16,9 +18,13 @@ import pytest
 import torch
 
 from bbocr_tpu_torch import kernels, ops
-from bbocr_tpu_torch.io import load_rgb
+from bbocr_tpu_torch.io import load_gray, load_rgb
+from bbocr_tpu_torch.llm.native_vlm import letterbox_page
+from bbocr_tpu_torch.models import vlm
 from bbocr_tpu_torch.preprocess import preprocess_for_book_cover
 from bbocr_tpu_torch.preprocess.chain import PLAIN_OPS, _preprocess
+from bbocr_tpu_torch.utils.checkpoint import load_params
+from pagereader_loops import cached_steps, full_buffer_generate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOOK1 = os.path.join(ROOT, "data", "real", "covers", "book1.png")
@@ -257,3 +263,153 @@ def test_span_brackets_the_device_work_it_launches(cuda_device):
     owners = spans.innermost(tr.spans, tr.launches)
     assert all(s is not None for s in owners) and {s.tid for s in owners} == {s.tid for s in tr.spans}
     assert spans.coverage(tr)["inside_s"] == pytest.approx(tr.busy_s)
+
+
+VLM_CKPT = os.path.join(ROOT, "checkpoints", "vlm.npz")
+VLM_PAGES = os.path.join(ROOT, "tests", "data", "vlm_jax_f32.json")
+
+
+def _pagereader(dev, dtype):
+    return vlm.PageReader(dtype=dtype).load_params(load_params(VLM_CKPT)).to(dev).eval()
+
+
+def _vlm_pages(dev, n):
+    """The 24 recorded pages as the ``tpu`` route makes them, cycled to ``n``:
+    (n, 256, 192, 1) float32 on ``dev``."""
+    with open(VLM_PAGES) as f:
+        rels = [p["page"] for p in json.load(f)["pages"]]
+    pages = []
+    for rel in rels[:n]:
+        with open(os.path.join(ROOT, rel), "rb") as f:
+            pages.append(letterbox_page(load_gray(f.read())))
+    return torch.from_numpy(np.stack([pages[i % len(pages)] for i in range(n)]))[..., None].to(dev)
+
+
+@pytest.mark.parametrize("batch", [1, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_graph_decode_equals_the_eager_step(cuda_device, dtype, batch):
+    """Replaying the captured step gives the eager cached step's ids bit for
+    bit, on the shipped checkpoint; each replay moved the step index on, so
+    the graph holds the step."""
+    model = _pagereader(cuda_device, dtype)
+    page = _vlm_pages(cuda_device, batch)
+    ids = vlm.greedy_generate(model, page)
+    (state,) = vlm._STATES[model].values()
+    assert state.graph is not None and int(state.t) == vlm.MAX_JSON_LEN - 1
+    assert torch.equal(ids, cached_steps(model, page)[0])
+
+
+def test_cuda_graph_decode_on_a_second_card():
+    """The PageReader on ``cuda:1`` while ``cuda:0`` is current (as
+    ``--device cuda:1`` runs it): the step is captured on the page's card, so
+    each replay moves the step index on and the ids are the eager cached
+    step's there. A step launched on the other card's stream would leave the
+    graph empty and the read BOS then PAD."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        model = _pagereader(dev, torch.float32)
+        page = _vlm_pages(dev, 2)
+        ids = vlm.greedy_generate(model, page)
+        assert torch.cuda.current_device() == 0
+        (state,) = vlm._STATES[model].values()
+        assert int(state.t) == vlm.MAX_JSON_LEN - 1
+        assert torch.equal(ids, cached_steps(model, page)[0])
+        assert bool((ids[:, 1] != vlm.PAD_ID).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_cached_decode_reads_as_the_full_buffer_loop(cuda_device, dtype):
+    """The 24 recorded pages at once: the graphed decode's ids against the
+    full-buffer loop's on the card, equal in float32; each step's logits
+    against row ``t`` of one full-buffer pass over the same ids, within
+    1e-4 in float32 (printed in both types: bfloat16's differ where a
+    float32 sum over another GEMM shape rounds to the other side)."""
+    model = _pagereader(cuda_device, dtype)
+    page = _vlm_pages(cuda_device, 24)
+    want, _ = full_buffer_generate(model, page)
+    ids = vlm.greedy_generate(model, page)
+    got, got_logits = cached_steps(model, page)
+    with torch.no_grad():
+        forced = model.decode(model.encode(page), got)[:, :-1].transpose(0, 1)
+    gap = float((got_logits - forced).abs().max())
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(ids, want))
+    print(f"\n{dtype}: {same} of 24 pages read as the full-buffer loop; a step's logits within {gap:.3g} of a "
+          f"full-buffer pass over the same ids")
+    assert torch.equal(ids, got)
+    if dtype == torch.float32:
+        assert same == 24 and gap < 1e-4
+
+
+def test_cuda_graph_decode_reads_parameters_changed_in_place(cuda_device):
+    """Between two calls, a cross-attention kernel and the head's bias change
+    in place (as a training step changes them): the second call's last
+    logits are the eager step's on the changed model, bit for bit."""
+    model = _pagereader(cuda_device, torch.float32)
+    page = _vlm_pages(cuda_device, 2)
+    vlm.greedy_generate(model, page)
+    (state,) = vlm._STATES[model].values()
+    before = state.logits.clone()
+    with torch.no_grad():
+        model.blocks[1].attns[1].key.weight.mul_(0.5)
+        model.head.bias[vlm.EOS_ID] += 5.0
+    ids = vlm.greedy_generate(model, page)
+    tokens, logits = cached_steps(model, page)
+    assert not torch.equal(state.logits, before)
+    assert torch.equal(ids, tokens) and torch.equal(state.logits, logits[-1])
+
+
+def test_cuda_graph_per_batch_size(cuda_device):
+    model = _pagereader(cuda_device, torch.bfloat16)
+    pages = _vlm_pages(cuda_device, 3)
+    ids = [vlm.greedy_generate(model, pages[:1]), vlm.greedy_generate(model, pages)]
+    states = vlm._STATES[model]
+    assert sorted(key[0] for key in states) == [1, 3]
+    graphs = [state.graph for state in states.values()]
+    assert all(g is not None for g in graphs) and graphs[0] is not graphs[1]
+    assert torch.equal(ids[0], cached_steps(model, pages[:1])[0]) and torch.equal(ids[1], cached_steps(model, pages)[0])
+
+
+def test_cuda_graph_capture_beside_another_thread(cuda_device):
+    """While the decode captures its step, another thread allocates,
+    launches and synchronises: the capture succeeds and reads as eager.
+    (The other thread draws no random numbers: PyTorch refuses a draw on the
+    card's generator while any thread captures.)"""
+    model = _pagereader(cuda_device, torch.bfloat16)
+    page = _vlm_pages(cuda_device, 4)
+    stop, done = threading.Event(), []
+
+    def churn():
+        while not stop.is_set():
+            x = torch.full((512, 512), 0.5, device=cuda_device)
+            done.append(float((x @ x).sum()))
+
+    worker = threading.Thread(target=churn)
+    worker.start()
+    try:
+        ids = vlm.greedy_generate(model, page)
+    finally:
+        stop.set()
+        worker.join(timeout=60)
+    assert not worker.is_alive() and done
+    assert torch.equal(ids, cached_steps(model, page)[0])
+
+
+def test_cuda_graph_kernels_show_in_the_benchmark_trace(cuda_device):
+    """A graph captured before a CUDA-only profiler session (the benchmark
+    captures in set-up, traces later): its replays' kernels are in the
+    session's events, with their device time."""
+    from portbench.core.trace import DeviceTrace
+
+    model = _pagereader(cuda_device, torch.bfloat16)
+    page = _vlm_pages(cuda_device, 8)
+    vlm.greedy_generate(model, page)
+    torch.cuda.synchronize()
+    with DeviceTrace() as t:
+        vlm.greedy_generate(model, page)
+        torch.cuda.synchronize()
+    tr = t.summary
+    print(f"\none traced call of 8 pages: {tr.kernels} kernels ({tr.kernels / 191:.1f} a step), busy {tr.busy_s:.4f} s; "
+          f"top {tr.top_ops(3)}")
+    assert tr.kernels > 191 * 100

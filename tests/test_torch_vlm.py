@@ -19,6 +19,12 @@
   run: bfloat16 roundings that differ in one place in a thousand per
   operation compound over ten blocks, and JAX's own op-by-op and jitted
   runs differ by up to 0.33 on these pages.
+- ``greedy_generate``'s cached step against the full-buffer loop it
+  replaced (``tests/pagereader_loops.py``: 191 passes of ``decode``, the
+  argmax of row ``t``, sticky EOS) on a seeded small ``PageReader``, at
+  batch 1 and 3 and ``max_len`` 6 and 24, one row reaching EOS at slot 3:
+  the ids equal, each step's logits within 1e-5 in float32 and 0.05 in
+  bfloat16 (the products' float32 sums run over other GEMM shapes).
 - The client: ``_page_from_b64`` pixel for pixel with the JAX client's on
   PNG and JPEG inputs of several modes and aspect ratios,
   ``create_llm_client("tpu")`` the cached client, ``_ensure_loaded``
@@ -52,6 +58,7 @@ from bbocr_tpu_torch.models import vlm
 from bbocr_tpu_torch.runtime import EngineConfig, OCREngine
 from bbocr_tpu_torch.runtime.bucketing import CanvasSpec
 from bbocr_tpu_torch.utils.checkpoint import load_params
+from pagereader_loops import cached_steps, full_buffer_generate
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -165,6 +172,27 @@ def test_checkpoint_greedy_matches_jax(tree):
     ids = vlm.greedy_generate(model, torch.from_numpy(_page(p["page"]))[None, ..., None])
     assert ids[0].tolist() == p["ids"]
     assert vlm.decode_ids(ids[0]) == p["text"]
+
+
+@pytest.mark.parametrize("max_len", [6, 24])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cached_greedy_matches_the_full_buffer_loop(dtype, batch, max_len):
+    """Pages black, white and seeded noise: the noise's row emits EOS into
+    slot 3 and keeps it, the others run on (batch 1 takes the noise)."""
+    torch.manual_seed(0)
+    model = vlm.PageReader(dim=32, enc_depth=1, dec_depth=2, heads=2, max_len=24, dtype=DTYPES[dtype][1]).eval()
+    noise = torch.randint(0, 256, (32, 24, 1), generator=torch.Generator().manual_seed(0)).float()
+    page = torch.stack([torch.zeros(32, 24, 1), torch.full((32, 24, 1), 255.0), noise])[-batch:]
+    want, want_logits = full_buffer_generate(model, page, max_len)
+    assert want[-1, 3:].eq(vlm.EOS_ID).all() and not want[-1, :3].eq(vlm.EOS_ID).any()
+    if batch == 3:
+        assert not want[:2, :4].eq(vlm.EOS_ID).any()
+    ids = vlm.greedy_generate(model, page, max_len)
+    got, got_logits = cached_steps(model, page, max_len)
+    assert torch.equal(ids, want) and torch.equal(got, want)
+    tol = 1e-5 if dtype == "float32" else 0.05
+    np.testing.assert_allclose(got_logits.numpy(), want_logits.numpy(), rtol=0, atol=tol)
 
 
 def _encoded(arr, mode, fmt):

@@ -205,6 +205,7 @@ def test_greedy_generate_spans():
         kids = sorted((s for s in kept if s.parent == g.id), key=lambda s: s.start_ns)
         assert [s.name for s in kids] == ["vlm.encode"] + ["vlm.step"] * 5
         assert [s.attrs.get("step") for s in kids[1:]] == list(range(5))
+        assert all(s.attrs["graph"] is False for s in kids[1:])  # no graph on the CPU
         assert all(s.batch == g.batch for s in kids)
 
 
@@ -412,8 +413,8 @@ def _pagereader_summary():
     sp = [
         _sp(1, 0, "vlm.generate", 10, 0, 1000, pages=2),
         _sp(2, 1, "vlm.encode", 10, 0, 100),
-        _sp(3, 1, "vlm.step", 10, 100, 400, step=0),
-        _sp(4, 1, "vlm.step", 10, 400, 1000, step=1),
+        _sp(3, 1, "vlm.step", 10, 100, 400, step=0, graph=True),
+        _sp(4, 1, "vlm.step", 10, 400, 1000, step=1, graph=False),
         _sp(5, 0, "vlm.generate", 10, 2000, 2500, batch=2, pages=2),
     ]
     k = (10 + (7 << 32)) & 0xFFFFFFFF
@@ -426,6 +427,7 @@ def _pagereader_summary():
 PAGE_READINGS = {
     "decode_step_device_ms.pagereader": 400e-6 / 2,
     "decode_step_host_ms.pagereader": 900e-6 / 2,
+    "graph_replay_share.pagereader": 1 / 2,
     # idle 600 ns, of which 900..1000 and 2000..2100 inside a call
     "idle_between_calls_pct.pagereader": 100.0 * 400 / 600,
 }
