@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import functools
 import math
-import threading
 import weakref
 from typing import Any, Dict, Optional, Tuple
 
@@ -49,6 +48,7 @@ import torch
 from torch import nn
 from torch.utils._pytree import tree_leaves, tree_map
 
+from bbocr_tpu_torch.models import graphed
 from bbocr_tpu_torch.models.charset import EN_CHARSET
 from bbocr_tpu_torch.utils import profiling
 from bbocr_tpu_torch.utils.profiling import span
@@ -333,7 +333,7 @@ class PageReader(nn.Module):
         return self.decode(self.encode(page), tokens)
 
 
-class DecodeState:
+class DecodeState(graphed.StepState):
     """Greedy decoding one position a step, over static buffers for one
     (model, batch, page tokens, ``max_len``, device).
 
@@ -353,12 +353,14 @@ class DecodeState:
     from the same tokens, rounded where that rounds; only the products'
     float32 sums may run in another order, as the GEMMs differ in shape.
 
-    ``capture`` records one ``step`` as a CUDA graph (``graph``), each
-    replay of which is a step: it reads and writes only these buffers, with
-    no host sync. ``lock`` guards the buffers through a call.
+    ``capture`` (``graphed.StepState``) records one ``step`` as a CUDA
+    graph (``graph``), each replay of which is a step: it reads and writes
+    only these buffers, with no host sync. ``lock`` guards the buffers
+    through a call.
     """
 
     def __init__(self, model: PageReader, batch: int, ctx_len: int, max_len: int, device: torch.device):
+        super().__init__(device)
         dt = model.dtype
         d, heads = model.dim, model.blocks[0].attns[0].heads
         self.dtype, self.heads = dt, heads
@@ -371,8 +373,6 @@ class DecodeState:
         self.t = torch.zeros((), dtype=torch.int64, device=device)
         self.slots = torch.arange(max_len, device=device)
         self.eos = torch.full((), EOS_ID, dtype=torch.int64, device=device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.lock = threading.Lock()
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         """(b, t, d) -> (b, heads, t, d / heads)."""
@@ -418,27 +418,6 @@ class DecodeState:
         self.tokens.index_copy_(1, at + 1, torch.where(done, self.eos, nxt)[:, None])
         self.t += 1
 
-    def capture(self) -> None:
-        """Record one ``step`` as a CUDA graph, after one eager step on a
-        side stream (the lazy set-up of cuBLAS and of ``_const`` stays out of
-        the capture). The capture runs on that stream, which lies on the
-        buffers' device whatever device is current: ``torch.cuda.graph``'s
-        own stream lies on the device current at its first use, and a step
-        launched on another device's stream would leave the graph empty.
-        The buffers then hold that step: ``load`` before replaying. Errors
-        are raised only by this thread's calls (``thread_local``): other
-        threads may launch work while it captures, though PyTorch refuses
-        them a draw from the card's random generator meanwhile."""
-        side = torch.cuda.Stream(self.t.device)
-        side.wait_stream(torch.cuda.current_stream(self.t.device))
-        with torch.cuda.stream(side):
-            self.step()
-        torch.cuda.current_stream(self.t.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-            self.step()
-        self.graph = graph
-
 
 def _cast_decoder(model: PageReader) -> Dict[str, Any]:
     """The decoder's parameters as its layers read them, cast once: the
@@ -462,20 +441,15 @@ def _cast_decoder(model: PageReader) -> Dict[str, Any]:
     }
 
 
-# model -> {(batch, page tokens, max_len, dtype, device): DecodeState}; weak,
-# so a dropped model frees its buffers and graphs, and no graph rides along
-# when a model is copied or pickled
+# model -> {(batch, page tokens, max_len, dtype, device): DecodeState}
+# (``graphed.state_for``)
 _STATES: "weakref.WeakKeyDictionary[PageReader, Dict[tuple, DecodeState]]" = weakref.WeakKeyDictionary()
-_STATES_LOCK = threading.Lock()
 
 
 def _graphed_state(model: PageReader, ctx: torch.Tensor, max_len: int) -> DecodeState:
     key = (ctx.shape[0], ctx.shape[1], max_len, model.dtype, ctx.device)
-    with _STATES_LOCK:
-        states = _STATES.setdefault(model, {})
-        if key not in states:
-            states[key] = DecodeState(model, ctx.shape[0], ctx.shape[1], max_len, ctx.device)
-        return states[key]
+    return graphed.state_for(
+        _STATES, model, key, lambda: DecodeState(model, ctx.shape[0], ctx.shape[1], max_len, ctx.device))
 
 
 @torch.no_grad()
@@ -494,21 +468,11 @@ def greedy_generate(model: PageReader, page: torch.Tensor, max_len: int = MAX_JS
     with profiling.batch(), span("vlm.generate", pages=page.shape[0]):
         with span("vlm.encode"):
             ctx = model.encode(page)
-        graphed = page.device.type == "cuda"
-        if graphed:
+        is_cuda = page.device.type == "cuda"
+        if is_cuda:
             state = _graphed_state(model, ctx, max_len)
         else:
             state = DecodeState(model, ctx.shape[0], ctx.shape[1], max_len, ctx.device)
         with state.lock:
-            state.load(model, ctx)
-            if graphed and state.graph is None:
-                state.capture()
-                state.load(model, ctx)
-            replay = state.graph is not None
-            for t in range(max_len - 1):
-                with span("vlm.step", step=t, graph=replay):
-                    if replay:
-                        state.graph.replay()
-                    else:
-                        state.step()
+            graphed.run_steps(state, max_len - 1, lambda: state.load(model, ctx), is_cuda, "vlm.step")
             return state.tokens.clone()

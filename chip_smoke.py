@@ -228,7 +228,24 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
    covers, ``BookMetadataExtractor`` given the mesh engine over
    ``books/1`` to ``books/3`` (each kernel's launches counted, the
    ``launches_mesh_route`` column), one joint step and one CRNN step on the
-   recorded batches; then the group is destroyed.
+   recorded batches; then the group is destroyed;
+17. the routed experts' grouped GEMM (``csrc/moe_gemm.cu``, built into its
+   own library) at Moonlight-16B-A3B's widths (64 experts of 1408, hidden
+   2048, 6 a token; ``portbench/configs/moonlight_16b_a3b.json``) in
+   bfloat16, at a decode step of 128 rows and at one prefill chunk
+   (``mla_moe.FFN_CHUNK`` tokens): against ``routed_experts_plain`` on the
+   same inputs (within one bfloat16 step of the output's scale, the share
+   of bit-equal values printed), then ``ms`` and ``library_ms`` (the
+   per-expert loop of cuBLAS GEMMs) per call, and each kernel's device ms
+   (warm and L2-flushed) beside its bound from the inputs (FLOPs at 989
+   TFLOP/s, or the touched experts' weights and the rows in and out at
+   3.35 TB/s);
+   then the whole model from the configuration with random weights, one
+   ``mla_moe.generate`` of 8 prompts and 16 new tokens with the launches
+   counted from 0 (the first call captures the step), and a second call
+   under the profiler, whose ``bbocr_moe_`` kernels are counted and timed
+   by tiling beside their bound. ``python3 chip_smoke.py --moe`` runs
+   phases 1 and 17 alone.
 
 Phases 4 to 7 run the engine of the first slices (device warps from the
 canvas, greedy decode), as their references were recorded; phases 8 and 9
@@ -324,6 +341,7 @@ LLM_ROUTE = os.path.join(ROOT, "tests", "data", "llm_route_jax_f32.json")
 SERVER_ROUTE = os.path.join(ROOT, "tests", "data", "server_route_jax_f32.json")
 PRICING_REFERENCE = os.path.join(ROOT, "tests", "data", "pricing_jax.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate (NVIDIA data sheet)
+BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor-core peak, dense
 F32_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores
 SOURCE = "bbocr_tpu_torch/csrc/preprocess.cu"
 PALLAS = "bbocr_tpu/kernels/preprocess_pallas.py"
@@ -3015,12 +3033,174 @@ def f32_read(rgb: np.ndarray, dev, ops, engine: OCREngine):
     return image, engine.readtext(image)
 
 
+MOONLIGHT = os.path.join(ROOT, "portbench", "configs", "moonlight_16b_a3b.json")
+
+
+def moe_bound_ms(kind: str, tokens: int, k: int, touched: float, width: int, hidden: int) -> float:
+    """Least device ms of one of the routed experts' kernels in bfloat16
+    (``gate_up``, ``down``, or ``both``): its products over the pairs at
+    the tensor cores' peak, or each input byte read once and each output
+    byte written once at the memory's (``gate_up``: the tokens, the touched
+    experts' gate and up rows, a row of h a pair; ``down``: h, the down
+    rows, a row of y a pair; ``both``: the tokens, all three, y)."""
+    pairs = tokens * k
+    mats, ins, outs = {"gate_up": (2, tokens * hidden, pairs * width), "down": (1, pairs * width, pairs * hidden),
+                       "both": (3, tokens * hidden, pairs * hidden)}[kind]
+    flops = 2.0 * pairs * mats * width * hidden
+    byts = 2.0 * (touched * mats * width * hidden + ins + outs)
+    return max(flops / BF16_OPS_PER_S, byts / HBM_BYTES_PER_S) * 1e3
+
+
+def check_moe(dev, card) -> dict:
+    """Phase 17 (see the module's docstring); returns the kernel's row."""
+    from bbocr_tpu_torch.kernels import moe_gemm
+    from bbocr_tpu_torch.models import mla_moe
+
+    t0 = time.perf_counter()
+    kernel_build.build_moe()
+    kernel_build.load_moe()
+    print(f"moe build seconds: {time.perf_counter() - t0:.2f}", flush=True)
+    for line in ptxas_report(kernel_build.build_logs.get(kernel_build.MOE_SOURCE, "")):
+        print(f"  ptxas: {line}", flush=True)
+    with open(MOONLIGHT) as f:
+        d = json.load(f)
+    e, width, hidden, k = (d[key] for key in ("n_routed_experts", "moe_intermediate_size", "hidden_size",
+                                              "num_experts_per_tok"))
+    g = torch.Generator(device=dev).manual_seed(17)
+    gate, up = (torch.randn(e, width, hidden, generator=g, device=dev).mul_(0.02).to(torch.bfloat16) for _ in range(2))
+    down = torch.randn(e, hidden, width, generator=g, device=dev).mul_(0.02).to(torch.bfloat16)
+    bias = torch.randn(e, generator=g, device=dev).mul_(0.3)  # uneven experts, as a trained router's
+    row = {"name": "routed_experts", "source": "bbocr_tpu_torch/csrc/moe_gemm.cu", "replaces": "none"}
+    for name, tokens in (("decode", 128), ("prefill", mla_moe.FFN_CHUNK)):
+        x = torch.randn(tokens, hidden, generator=g, device=dev).to(torch.bfloat16)
+        idx = (torch.rand(tokens, e, generator=g, device=dev) + bias).topk(k).indices
+        weight = torch.rand(tokens, k, generator=g, device=dev)
+        moe_gemm.reset_launches()
+        got = moe_gemm.routed_experts(x, idx, weight, gate, up, down)
+        torch.cuda.synchronize()
+        if moe_gemm.routed_experts.launches != 1:
+            fail(f"routed_experts counted {moe_gemm.routed_experts.launches} launches for one call")
+        want = moe_gemm.routed_experts_plain(x, idx, weight, gate, up, down)
+        diff = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        equal = float((got == want).float().mean())
+        print(f"17 {name}: {tokens} tokens, max diff {diff:.4g} of max {scale:.4g}, "
+              f"{equal:.6f} of values bit-equal to the per-expert loop", flush=True)
+        # the same roundings, the products summed in another order: a value
+        # of h or y may round the other way, by one bfloat16 step
+        if diff > 2 ** -7 * scale:
+            fail(f"routed_experts at {tokens} tokens differs from the per-expert loop by {diff} (max {scale})")
+        fn = lambda: moe_gemm.routed_experts(x, idx, weight, gate, up, down)  # noqa: E731
+        touched = int(torch.unique(idx).numel())
+        timing = {"ms": median_ms(fn),
+                  "library_ms": median_ms(lambda: moe_gemm.routed_experts_plain(x, idx, weight, gate, up, down),
+                                          reps=5)}
+        for kind in ("gate_up", "down"):
+            timing[f"{kind}_device_ms"] = profiled_device_ms(fn, f"bbocr_moe_{kind}_kernel")
+            timing[f"{kind}_device_ms_l2_flushed"] = profiled_device_ms(fn, f"bbocr_moe_{kind}_kernel", flush=True)
+            timing[f"{kind}_bound_ms"] = moe_bound_ms(kind, tokens, k, touched, width, hidden)
+        timing["bound_ms"] = moe_bound_ms("both", tokens, k, touched, width, hidden)
+        bound_by = "FLOPs" if 2.0 * tokens * k * 3 * width * hidden / BF16_OPS_PER_S * 1e3 >= timing["bound_ms"] \
+            else "bytes"
+        print(f"17 {name} times (ms; bound by {bound_by}, {touched} experts touched; ms and library_ms per "
+              f"call with the sort and the weighted sum): "
+              + ", ".join(f"{key} {'not measured' if v is None else f'{v:.4f}'}" for key, v in timing.items())
+              + f"; {card}", flush=True)
+        row[name] = dict(timing, max_abs_err=diff, bit_equal_share=equal, bound_by=bound_by)
+        del x, idx, weight, got, want
+    del gate, up, down
+    torch.cuda.empty_cache()
+
+    a = d["assumed"]
+    cfg = mla_moe.MLAMoEConfig.from_dict(d, a["bos_token_id"], a["eos_token_id"])
+    scales = mla_moe.InitScales(**{key: a["init"][key] for key in ("std", "out_std", "embed_std", "norm_std",
+                                                                     "bias_std")})
+    t0 = time.perf_counter()
+    model = mla_moe.init_random(cfg, 21, dev, torch.bfloat16, scales)
+    torch.cuda.synchronize()
+    print(f"17 Moonlight's weights drawn in {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(21)
+    lengths = rng.integers(64, 512, 8)
+    ids = np.zeros((8, int(lengths.max())), np.int64)
+    for i, n in enumerate(lengths):
+        ids[i, :n] = np.concatenate([[a["bos_token_id"]], rng.integers(0, a["ordinary_ids"], n - 1)])
+    ids_t, lengths_t = torch.from_numpy(ids).to(dev), torch.from_numpy(lengths).to(dev)
+    new = 16
+    moe_layers = sum(cfg.is_moe(i) for i in range(cfg.num_hidden_layers))
+    chunks = -(-int(lengths.sum()) // mla_moe.FFN_CHUNK)
+    moe_gemm.reset_launches()
+    first = mla_moe.generate(model, ids_t, lengths_t, new)
+    torch.cuda.synchronize()
+    # the first call prefills twice (before and after the capture) and runs
+    # the step twice (eagerly, then captured); replays call no wrapper
+    want = moe_layers * (2 * chunks + 2)
+    print(f"17 generate, first call: routed_experts launches {moe_gemm.routed_experts.launches} "
+          f"(want {want}), plain {moe_gemm.routed_experts_plain.launches}", flush=True)
+    if moe_gemm.routed_experts.launches != want or moe_gemm.routed_experts_plain.launches:
+        fail("mla_moe.generate did not run the grouped GEMM on every expert layer")
+    from torch.profiler import ProfilerActivity, profile
+
+    moe_gemm.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = mla_moe.generate(model, ids_t, lengths_t, new)
+        torch.cuda.synchronize()
+    if not torch.equal(again, first):
+        fail("a replayed generate differs from the first call")
+    counts, device_ms = {}, {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("bbocr_moe_"):
+            counts[ev.key] = ev.count
+            device_ms[ev.key] = ev.self_device_time_total / 1e3
+    print(f"17 generate, second call: routed_experts launches {moe_gemm.routed_experts.launches} "
+          f"(want {moe_layers * chunks}); traced kernels {json.dumps(counts)}", flush=True)
+    decode = {key: n for key, n in counts.items() if key.endswith("_decode")}
+    prefill_pairs = int(lengths.sum()) * k
+    steps = new - 1
+    want_decode = moe_layers * (steps + (chunks if prefill_pairs < 32 * e else 0))
+    for kind in ("gate_up", "down"):
+        got_decode = counts.get(f"bbocr_moe_{kind}_kernel_bf16_decode", 0)
+        got_all = got_decode + counts.get(f"bbocr_moe_{kind}_kernel_bf16_prefill", 0)
+        if got_all != moe_layers * (chunks + steps) or got_decode != want_decode:
+            fail(f"the traced {kind} kernels ran {got_all} times ({got_decode} decode), want "
+                 f"{moe_layers * (chunks + steps)} ({want_decode} decode)")
+    touched = e * (1.0 - (1.0 - k / e) ** 8)
+    step_bound = moe_layers * moe_bound_ms("both", 8, k, touched, width, hidden)
+    step_ms = sum(ms for key, ms in device_ms.items() if key in decode) / steps
+    prefill_bound = moe_layers * moe_bound_ms("both", int(lengths.sum()), k, e, width, hidden)
+    prefill_ms = sum(ms for key, ms in device_ms.items() if key not in decode) or None
+    print(f"17 generate's experts: a decode step of 8 rows {step_ms:.4f} device ms (bound {step_bound:.4f}, "
+          f"experts touched as under even routing); the prefill of {int(lengths.sum())} tokens "
+          f"{'not measured' if prefill_ms is None else f'{prefill_ms:.4f}'} device ms (bound {prefill_bound:.4f}); "
+          f"{card}", flush=True)
+    row["generate"] = {"counts": counts, "step_device_ms": step_ms, "step_bound_ms": step_bound,
+                       "prefill_device_ms": prefill_ms, "prefill_bound_ms": prefill_bound}
+    del model
+    torch.cuda.empty_cache()
+    return row
+
+
+def moe_only() -> int:
+    """``--moe``: phases 1 and 17."""
+    dev = torch.device("cuda", 0)
+    phase("phase 1: card")
+    card = card_line()
+    print(card, flush=True)
+    phase("phase 17: the routed experts' grouped GEMM at Moonlight's widths, and one generate")
+    print(json.dumps({"moe": check_moe(dev, card)}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--warmup-probe"]:
         return warmup_probe(sys.argv[2])
+    if sys.argv[1:2] == ["--moe"]:
+        return moe_only()
     dev = torch.device("cuda", 0)
     watch_swallowed()
     phase("phase 1: card")
@@ -3162,6 +3342,8 @@ def main() -> int:
     phase("phase 16: a 1x1 mesh (NCCL): the engine, the extractor and two train steps against the unsharded path")
     for name, count in check_mesh(dev, card).items():
         report[name]["launches_mesh_route"] = count
+    phase("phase 17: the routed experts' grouped GEMM at Moonlight's widths, and one generate")
+    moe_row = check_moe(dev, card)
     phase("end: the kernels' line and the result")
 
     print(card, flush=True)
@@ -3171,7 +3353,7 @@ def main() -> int:
              "launches_llm_route", "launches_service", "launches_pagereader_route", "launches_training",
              "launches_mesh_route"]
     rows = [{k: report[name][k] for k in order} for name in kernels.KERNELS]
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows, "moe": moe_row}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)
